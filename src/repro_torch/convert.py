@@ -1,0 +1,49 @@
+"""Carry state from numpy arrays into the port.
+
+The reference package and the port draw different random numbers from
+the same seed, so anything both must compute on — parameters, calibration
+state — is handed over as numpy arrays. Layouts stay the reference's:
+HWIO conv weights, [K, N] dense weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class Calibration:
+    """PTQ calibration state an engine can adopt (``Engine.load_calibration``):
+    per-node activation absmax and PTQ error ratios. The adopting engine
+    quantizes its own weights (bit-identical to the reference's codes)."""
+    act_absmax: Dict[str, float]
+    ptq_err: Dict[str, float]
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(params_np: Mapping[str, Mapping[str, np.ndarray]],
+                      device: DeviceLike = None
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{node: {name: array}}`` -> the same dict of tensors on ``device``."""
+    dev = resolve_device(device)
+    return {node: {k: _tensor(v, dev) for k, v in p.items()}
+            for node, p in params_np.items()}
+
+
+def calibration_from_numpy(act_absmax: Mapping[str, float],
+                           ptq_err: Mapping[str, float],
+                           device: DeviceLike = None) -> Calibration:
+    """Calibration state as the port holds it: Python floats keyed by node.
+    ``device`` is checked like every entry point's (the card unless the
+    caller asks for the CPU)."""
+    resolve_device(device)
+    return Calibration({k: float(v) for k, v in act_absmax.items()},
+                       {k: float(v) for k, v in ptq_err.items()})

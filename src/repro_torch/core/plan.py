@@ -1,0 +1,625 @@
+"""Staged execution plans: Planned -> Lowered -> Compiled.
+
+* :class:`ExecutionPlan` (**Planned**) — built once per (engine, backend):
+  the inspector's backend assignment, the PTQ fidelity gate (nodes whose
+  calibration-time quantization error is too large are demoted to the
+  flex path), the graph-compiler pass pipeline (``core/passes.py``), the
+  contiguous accel/flex segments over the rewritten graph, PTQ scales
+  folded into per-node constants, and the static activation arena that
+  prices the plan's :class:`~repro_torch.core.energy.CostSignature`.
+  ``fuse=False`` skips the pass pipeline and builds per-node plans.
+* :class:`LoweredPlan` / :class:`CompiledPlan` — the plan bound to one
+  batch size: a callable over ``[B, ...]`` tensors. PyTorch runs eagerly,
+  so binding is all a lowering does; ``n_traces`` still counts lowerings
+  and steady-state serving must not grow it.
+
+Layout is NHWC at every graph value, as in the reference: library ops
+that want channels first (convolution, pooling) permute inside. Every
+int8 conv2d/dense runs the hand-written kernels through
+:func:`_run_quantized`. Random ops (VAE sampling) and the LM kernels are
+not ported yet; a graph that needs them is refused at plan time.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import energy as energy_mod
+from repro_torch.core import memory as memory_mod
+from repro_torch.core.opgraph import Graph, Node, base_op, consumers, param_node
+from repro_torch.core.passes import PassContext, PassManager, PassReport
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.epilogue import f32, quantize_act
+
+
+# ---------------------------------------------------------------------------
+# Batched fp32 op implementations (leading batch dim everywhere, NHWC)
+# ---------------------------------------------------------------------------
+
+
+def _same_pads(sizes, kernel, stride: int, padding: str) -> List[int]:
+    """F.pad spec (last spatial dim first) for SAME/VALID: SAME puts the
+    odd extra row/column at the end, as XLA does."""
+    pads: List[int] = []
+    for size, k in zip(reversed(sizes), reversed(kernel)):
+        if padding == "SAME":
+            out = -(-size // stride)
+            total = max((out - 1) * stride + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        elif padding == "VALID":
+            pads += [0, 0]
+        else:
+            raise ValueError(padding)
+    return pads
+
+
+def _conv_b(x, p, a, nd: int):
+    w = p["w"].float()                      # HWIO / DHWIO
+    k = tuple(w.shape[:nd])
+    x = x.float()
+    x = F.pad(x, [0, 0] + _same_pads(x.shape[1:1 + nd], k,
+                                     a.get("stride", 1),
+                                     a.get("padding", "SAME")))
+    perm_in = (0, nd + 1) + tuple(range(1, nd + 1))
+    perm_w = (nd + 1, nd) + tuple(range(nd))
+    conv = F.conv2d if nd == 2 else F.conv3d
+    out = conv(x.permute(perm_in), w.permute(perm_w),
+               stride=a.get("stride", 1), groups=a.get("groups", 1))
+    perm_out = (0,) + tuple(range(2, nd + 2)) + (1,)
+    return out.permute(perm_out) + p["b"]
+
+
+def _pool_b(x, a, nd: int, op: str):
+    k, s = a["kernel"], a.get("stride", a["kernel"])
+    dtype = x.dtype
+    # pooling runs in float32: exact for int8 codes (max is monotone), and
+    # PyTorch's integer max-pool limits the map to the integer type's range
+    xc = x.float().permute((0, nd + 1) + tuple(range(1, nd + 1)))
+    if op == "max":
+        pool = F.max_pool2d if nd == 2 else F.max_pool3d
+        out = pool(xc, k, s)
+    else:
+        pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
+        out = pool(xc, k, s, divisor_override=1) / (k ** nd)
+    out = out.permute((0,) + tuple(range(2, nd + 2)) + (1,))
+    return out.to(dtype) if op == "max" else out
+
+
+def _dense_b(x, p, a):
+    if a.get("per_position", False):
+        out = x @ p["w"]
+    else:
+        out = x.reshape(x.shape[0], -1) @ p["w"]
+    if "b" in p:
+        out = out + p["b"]
+    return out
+
+
+def _reshape_b(x, a):
+    tgt = list(a["shape"])
+    if -1 in tgt:
+        rest = int(np.prod([d for d in tgt if d != -1]))
+        tgt[tgt.index(-1)] = int(np.prod(x.shape[1:])) // rest
+    return x.reshape((x.shape[0],) + tuple(tgt))
+
+
+def _concat_axis(a) -> int:
+    ax = a.get("axis", -1)
+    return ax + 1 if ax >= 0 else ax
+
+
+BATCHED_OP_IMPLS: Dict[str, Callable] = {
+    "conv2d": lambda x, p, a, rng: _conv_b(x[0], p, a, 2),
+    "conv3d": lambda x, p, a, rng: _conv_b(x[0], p, a, 3),
+    "maxpool2d": lambda x, p, a, rng: _pool_b(x[0], a, 2, "max"),
+    "avgpool2d": lambda x, p, a, rng: _pool_b(x[0], a, 2, "avg"),
+    "maxpool3d": lambda x, p, a, rng: _pool_b(x[0], a, 3, "max"),
+    "avgpool3d": lambda x, p, a, rng: _pool_b(x[0], a, 3, "avg"),
+    "dense": lambda x, p, a, rng: _dense_b(x[0], p, a),
+    "reshape": lambda x, p, a, rng: _reshape_b(x[0], a),
+    "flatten": lambda x, p, a, rng: x[0].reshape(x[0].shape[0], -1),
+    "relu": lambda x, p, a, rng: torch.clamp_min(x[0], 0.0),
+    "leaky_relu": lambda x, p, a, rng: torch.where(
+        x[0] > 0, x[0], a.get("alpha", 0.01) * x[0]),
+    "sigmoid": lambda x, p, a, rng: torch.sigmoid(x[0]),
+    "tanh": lambda x, p, a, rng: torch.tanh(x[0]),
+    "softplus": lambda x, p, a, rng: F.softplus(x[0]),
+    "exp": lambda x, p, a, rng: torch.exp(x[0]),
+    "concat": lambda x, p, a, rng: torch.cat(x, dim=_concat_axis(a)),
+    "add": lambda x, p, a, rng: x[0] + x[1],
+    "sub": lambda x, p, a, rng: x[0] - x[1],
+    "mul": lambda x, p, a, rng: x[0] * x[1],
+    "greater": lambda x, p, a, rng: (x[0] > a["threshold"]).float(),
+    "argmax": lambda x, p, a, rng: torch.argmax(
+        x[0].reshape(x[0].shape[0], -1), dim=1).to(torch.int32),
+}
+
+
+def _run_fused_f32(node: Node, xs, params) -> torch.Tensor:
+    """An fp32 ``fused`` node: the base op, then its element-wise
+    epilogue(s) — identical math to the unfused node pair."""
+    y = BATCHED_OP_IMPLS[node.attrs["base_op"]](
+        xs, params.get(param_node(node), {}), node.attrs, None)
+    for e in node.attrs.get("epilogue", ()):
+        y = BATCHED_OP_IMPLS[e]([y], {}, {}, None)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Plan-time folding
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """A contiguous run of nodes on one backend (the paper's partial
+    offload unit)."""
+    backend: str                    # 'accel' | 'flex'
+    nodes: Tuple[str, ...]
+
+
+@dataclasses.dataclass
+class QuantNodePlan:
+    """PTQ constants folded into a quantized node at plan time."""
+    op: str                         # 'conv2d' | 'dense' (base compute op)
+    w_q: torch.Tensor               # dense: [K, N]; conv: [KH, KW, Cin, Cout]
+    w_scale: torch.Tensor           # [N] per-output-channel
+    bias: Optional[torch.Tensor]
+    act_scale: float                # static per-tensor input scale
+    act: Optional[str] = None       # fused activation epilogue
+    requant_scale: Optional[float] = None   # int8 output at this scale
+    int8_input: bool = False        # producer already delivered int8
+    stride: int = 1
+    padding: str = "SAME"
+    per_position: bool = False      # dense over the last axis only (LM)
+
+
+def partition_segments(graph: Graph, assignment: Dict[str, str]
+                       ) -> List[Segment]:
+    """Group ``graph.order`` into contiguous same-backend runs. Inputs
+    and plan-time constants are structural and never split a run."""
+    segs: List[Segment] = []
+    run: List[str] = []
+    cur: Optional[str] = None
+    for name in graph.order:
+        if graph.nodes[name].op in ("input", "const"):
+            continue
+        b = assignment[name]
+        if b != cur and run:
+            segs.append(Segment(cur, tuple(run)))
+            run = []
+        cur = b
+        run.append(name)
+    if run:
+        segs.append(Segment(cur, tuple(run)))
+    return segs
+
+
+class ExecutionPlan:
+    """**Planned** stage: everything derivable without a batch size.
+
+    :meth:`lower` binds a batch size; ``n_traces`` counts lowerings.
+    ``device`` is where the plan's weights and every value it computes
+    live: quantized nodes launch the CUDA kernels on a CUDA device and run
+    the kernels' plain versions on the CPU.
+    """
+
+    def __init__(self, graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
+                 backend: str,
+                 quant: Optional[Dict[str, Any]] = None,
+                 act_absmax: Optional[Dict[str, float]] = None,
+                 ptq_err: Optional[Dict[str, float]] = None,
+                 ptq_demote_threshold: float = 0.2,
+                 fuse: bool = True,
+                 device: torch.device = torch.device("cpu")):
+        from repro_torch.core import inspector as inspector_mod
+        missing = sorted({base_op(n) for n in graph.nodes.values()
+                          if n.op not in ("input", "const")
+                          and base_op(n) not in BATCHED_OP_IMPLS})
+        if missing:
+            raise NotImplementedError(
+                f"ops not ported yet: {missing} (graph {graph.name!r})")
+        self.source_graph = graph
+        self.params = params
+        self.backend = backend
+        self.fuse = fuse
+        self.device = device
+        self.n_traces = 0
+        # live int8 weight buffers (fed to the program as ARGUMENTS) +
+        # pristine host copies for re-pack recovery
+        self._weight_arena: Optional[Dict[str, torch.Tensor]] = None
+        self._host_weights: Dict[str, np.ndarray] = {}
+
+        assignment = inspector_mod.assign_backends(graph)
+        self.demoted: List[str] = []
+        self.qplans: Dict[str, QuantNodePlan] = {}
+        self.fused_into: Dict[str, str] = {}    # legacy: relu node -> producer
+        self.pass_report: Optional[PassReport] = None
+        self.arena: Optional[memory_mod.ArenaPlan] = None
+
+        if backend == "accel":
+            if quant is None:
+                raise RuntimeError(
+                    "accel backend needs calibrate() first (PTQ)")
+            # PTQ fidelity gate first, on the source graph
+            for name in graph.order:
+                node = graph.nodes[name]
+                if (assignment[name] != "accel"
+                        or node.op not in ("conv2d", "dense")
+                        or name not in quant):
+                    continue
+                err = (ptq_err or {}).get(name, 0.0)
+                if err > ptq_demote_threshold:
+                    assignment[name] = "flex"
+                    self.demoted.append(name)
+        else:
+            assignment = {n: "flex" for n in assignment}
+
+        if fuse:
+            ctx = PassContext(
+                params=params, assignment=assignment,
+                quant=quant if backend == "accel" else None,
+                act_absmax=act_absmax if backend == "accel" else None)
+            self.graph, self.pass_report = PassManager().run(graph, ctx)
+            assignment = ctx.assignment
+            if backend == "accel":
+                self._fold_quant_fused(quant, act_absmax, assignment)
+        else:
+            self.graph = graph
+            if backend == "accel":
+                self._fold_quant_legacy(quant, act_absmax, assignment)
+
+        self.assignment = assignment
+        self.segments = partition_segments(self.graph, assignment)
+        if fuse:
+            self.arena = self._plan_arena()
+        self._lowered: Dict[int, "LoweredPlan"] = {}
+
+    # -- PTQ folding ---------------------------------------------------------
+
+    def _act_scale(self, act_absmax: Optional[Dict[str, float]],
+                   inp: str) -> float:
+        from repro_torch.core.quantize import act_scale
+        absmax = (act_absmax or {}).get(inp)
+        if absmax is None:
+            raise RuntimeError(
+                f"no calibration absmax for {inp!r} (accel plan)")
+        return act_scale(absmax)
+
+    def _fold_quant_fused(self, quant, act_absmax, assignment) -> None:
+        """Quantized-node constants over the pass-rewritten graph: the
+        fusion decisions arrive as node attrs (epilogue / requant_scale /
+        int8_input) and fold straight into the QuantNodePlan."""
+        for name in self.graph.order:
+            node = self.graph.nodes[name]
+            bop = base_op(node)
+            if (assignment.get(name) != "accel"
+                    or bop not in ("conv2d", "dense")):
+                continue
+            pkey = param_node(node)
+            if pkey not in quant:
+                continue
+            q = quant[pkey]
+            s = self._act_scale(act_absmax, node.inputs[0])
+            epi = node.attrs.get("epilogue", ())
+            common = dict(
+                w_scale=q.w_scale, bias=q.bias, act_scale=s,
+                act=epi[0] if epi else None,
+                requant_scale=node.attrs.get("requant_scale"),
+                int8_input=bool(node.attrs.get("int8_input")),
+                per_position=bool(node.attrs.get("per_position")))
+            if bop == "conv2d":
+                w4 = q.w_q.reshape(self.params[pkey]["w"].shape)
+                self.qplans[name] = QuantNodePlan(
+                    "conv2d", w4, stride=node.attrs.get("stride", 1),
+                    padding=node.attrs.get("padding", "SAME"), **common)
+            else:
+                self.qplans[name] = QuantNodePlan("dense", q.w_q, **common)
+
+    def _fold_quant_legacy(self, quant, act_absmax, assignment) -> None:
+        """The pre-pass (fuse=False) folding: per-node quantization with
+        sole-consumer ReLU epilogues recorded as node aliases
+        (``fused_into``)."""
+        cons = consumers(self.graph)
+        for name in self.graph.order:
+            node = self.graph.nodes[name]
+            if (assignment[name] != "accel"
+                    or node.op not in ("conv2d", "dense")
+                    or name not in quant):
+                continue
+            q = quant[name]
+            s = self._act_scale(act_absmax, node.inputs[0])
+            fused = False
+            cs = cons[name]
+            if (len(cs) == 1 and self.graph.nodes[cs[0]].op == "relu"
+                    and name not in self.graph.outputs
+                    and assignment.get(cs[0]) == "accel"):
+                fused = True
+                self.fused_into[cs[0]] = name
+            act = "relu" if fused else None
+            if node.op == "conv2d":
+                w4 = q.w_q.reshape(self.params[name]["w"].shape)
+                self.qplans[name] = QuantNodePlan(
+                    "conv2d", w4, q.w_scale, q.bias, s, act=act,
+                    stride=node.attrs.get("stride", 1),
+                    padding=node.attrs.get("padding", "SAME"))
+            else:
+                self.qplans[name] = QuantNodePlan(
+                    "dense", q.w_q, q.w_scale, q.bias, s, act=act,
+                    per_position=bool(node.attrs.get("per_position")))
+
+    # -- arena ---------------------------------------------------------------
+
+    def _quantized_names(self) -> set:
+        return set(self.qplans)
+
+    def _plan_arena(self) -> memory_mod.ArenaPlan:
+        hw = energy_mod.BACKEND_HW[self.backend]
+        w_bytes = energy_mod.weight_bytes(self.graph, self.backend,
+                                          self._quantized_names(), None)
+        budget = max(int(hw.onchip_bytes) - w_bytes, 0) \
+            if w_bytes <= hw.onchip_bytes else int(hw.onchip_bytes)
+        act_dtype = {}
+        for name, node in self.graph.nodes.items():
+            if (node.attrs.get("int8")
+                    or node.attrs.get("requant_scale") is not None):
+                act_dtype[name] = 1     # int8-domain value
+        return memory_mod.plan_arena(self.graph, self.segments, budget,
+                                     act_dtype, backend=self.backend,
+                                     weight_bytes=w_bytes)
+
+    # -- the live weight arena -----------------------------------------------
+
+    @property
+    def weight_arena(self) -> Dict[str, torch.Tensor]:
+        """Live int8 weight buffers, one per quantized node, read by the
+        program on every call (a swapped entry takes effect at once)."""
+        if self._weight_arena is None:
+            arena = {name: qp.w_q for name, qp in self.qplans.items()}
+            self._weight_arena = arena
+            self._host_weights = {n: a.cpu().numpy().copy()
+                                  for n, a in arena.items()}
+        return self._weight_arena
+
+    @property
+    def host_weights(self) -> Dict[str, np.ndarray]:
+        """Pristine host copies of the arena (the re-pack source)."""
+        self.weight_arena
+        return self._host_weights
+
+    def repack_weights(self, names: Optional[List[str]] = None) -> int:
+        """Restore arena entries from the pristine host copies. Returns
+        the bytes rewritten."""
+        arena = self.weight_arena
+        total = 0
+        for name in (names if names is not None else list(arena)):
+            arena[name] = torch.from_numpy(
+                self._host_weights[name].copy()).to(self.device)
+            total += self._host_weights[name].nbytes
+        return total
+
+    # -- the batched program -------------------------------------------------
+
+    def batched_fn(self) -> Callable:
+        """The plan as a callable ``f(inputs[B,...], rngs[B,2], weights)``:
+        ``weights`` is the live :attr:`weight_arena` dict; ``rngs`` carries
+        one seed pair per sample for random ops (none is ported yet)."""
+        graph, params = self.graph, self.params
+        qplans, fused_into = self.qplans, self.fused_into
+        device = self.device
+
+        def f(inputs: Dict[str, torch.Tensor], rngs: torch.Tensor,
+              weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            vals: Dict[str, torch.Tensor] = {}
+            batch = rngs.shape[0]
+            for name in graph.graph_inputs:
+                vals[name] = inputs[name].float()
+            for name in graph.order:
+                node = graph.nodes[name]
+                if node.op == "const":
+                    v = torch.as_tensor(np.asarray(node.attrs["value"]),
+                                        device=device)
+                    vals[name] = v.expand((batch,) + tuple(v.shape))
+            for seg in self.segments:
+                for name in seg.nodes:
+                    node = graph.nodes[name]
+                    if name in fused_into:      # ReLU folded into producer
+                        vals[name] = vals[fused_into[name]]
+                        continue
+                    xs = [vals[i] for i in node.inputs]
+                    if name in qplans:
+                        vals[name] = _run_quantized(qplans[name], xs[0],
+                                                    w_q=weights[name])
+                        continue
+                    if node.op == "fused":      # fp32 fused (flex path)
+                        vals[name] = _run_fused_f32(node, xs, params)
+                        continue
+                    vals[name] = BATCHED_OP_IMPLS[node.op](
+                        xs, params.get(name, {}), node.attrs, None)
+            return {o: vals[o] for o in graph.outputs}
+
+        return f
+
+    # -- staging -------------------------------------------------------------
+
+    def lower(self, batch_size: int) -> "LoweredPlan":
+        if batch_size in self._lowered:
+            return self._lowered[batch_size]
+        self.weight_arena
+        self.n_traces += 1
+        lp = LoweredPlan(self, batch_size, self.batched_fn())
+        self._lowered[batch_size] = lp
+        return lp
+
+    def cost_signature(self, batch_size: int,
+                       backend: Optional[str] = None
+                       ) -> energy_mod.CostSignature:
+        """Plan-time modeled cost of one ``batch_size`` dispatch on this
+        plan's backend (``backend`` overrides for the cpu/EagerPlan view).
+        Fused plans price DDR traffic from the static arena; the eager
+        cpu view and unfused plans keep the op-by-op bytes model."""
+        if self.arena is not None and backend is None:
+            return energy_mod.plan_cost_signature(
+                self.graph, self.backend, batch_size, self.arena,
+                quantized=self._quantized_names())
+        return energy_mod.cost_signature(
+            self.graph, backend or self.backend, batch_size,
+            quantized=self._quantized_names())
+
+    def stage_costs(self, batch_size: int,
+                    backend: Optional[str] = None
+                    ) -> Tuple[energy_mod.StageCost, ...]:
+        """The plan's pipeline-stage decomposition at ``batch_size``:
+        host stage_in -> one stage per segment -> host readback. The
+        ``backend`` override (the EagerPlan cpu view) is one monolithic
+        eager stage."""
+        if backend is not None and backend != self.backend:
+            sig = self.cost_signature(batch_size, backend=backend)
+            return (energy_mod.StageCost("eager", backend, sig.latency_s),)
+        return energy_mod.stage_costs(
+            self.graph, self.backend, batch_size, self.segments,
+            arena=self.arena, quantized=self._quantized_names())
+
+    def pipelined_cost_signature(self, batch_size: int,
+                                 backend: Optional[str] = None
+                                 ) -> energy_mod.CostSignature:
+        """`cost_signature` with the pipelined-latency term: the longest
+        stage of `stage_costs`."""
+        sig = self.cost_signature(batch_size, backend=backend)
+        stages = self.stage_costs(batch_size, backend=backend)
+        return dataclasses.replace(
+            sig, pipelined_latency_s=max(s.seconds for s in stages))
+
+    # -- reporting -----------------------------------------------------------
+
+    def summary(self) -> str:
+        n_fused = sum(1 for n in self.graph.nodes.values()
+                      if n.op == "fused")
+        lines = [f"ExecutionPlan[{self.graph.name}/{self.backend}]: "
+                 f"{len(self.segments)} segment(s), "
+                 f"{len(self.qplans)} quantized node(s), "
+                 f"{n_fused + len(self.fused_into)} fused epilogue(s), "
+                 f"fuse={'on' if self.fuse else 'off'}"]
+        for seg in self.segments:
+            lines.append(f"  [{seg.backend:5s}] {seg.nodes[0]} .. "
+                         f"{seg.nodes[-1]} ({len(seg.nodes)} nodes)")
+        if self.pass_report is not None and self.pass_report.n_rewrites:
+            lines.append("  passes:")
+            lines.append(self.pass_report.summary())
+        if self.demoted:
+            lines.append(f"  PTQ-demoted to flex: {self.demoted}")
+        if self.arena is not None:
+            a = self.arena
+            lines.append(
+                f"  arena: peak {a.bram_peak:,}/{a.bram_budget:,} B BRAM, "
+                f"{a.n_spilled} spill(s), "
+                f"{a.ddr_bytes_per_sample:,} DDR B/sample")
+        return "\n".join(lines)
+
+    def as_text(self) -> str:
+        """Full textual plan dump: the rewritten graph, per-node
+        quantization state, fusion groups, and the arena table."""
+        lines = [self.summary(), "", self.graph.summary()]
+        if self.qplans:
+            lines.append("")
+            for name, qp in self.qplans.items():
+                bits = [f"s_in={qp.act_scale:.3g}"]
+                if qp.act:
+                    bits.append(f"act={qp.act}")
+                if qp.requant_scale is not None:
+                    bits.append(f"requant={qp.requant_scale:.3g}")
+                if qp.int8_input:
+                    bits.append("int8-in")
+                lines.append(f"  int8 {name:24s} {qp.op:7s} "
+                             + " ".join(bits))
+        if self.arena is not None:
+            lines.append("")
+            lines.append(self.arena.summary())
+        return "\n".join(lines)
+
+
+def _run_quantized(qp: QuantNodePlan, x: torch.Tensor,
+                   w_q: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One kernel per quantized layer: static-scale quantize -> int8
+    matmul/conv -> dequant (+bias, +act, +requantize) epilogue.
+
+    Activations beyond the calibration absmax saturate at +-127, as on the
+    accelerator. When the producer already requantized (``int8_input``)
+    the incoming int8 values are consumed directly. ``w_q`` is the node's
+    live weight-arena buffer (``qp.w_q`` when omitted)."""
+    s = qp.act_scale
+    wq = qp.w_q if w_q is None else w_q
+    if qp.op == "dense":
+        # per_position folds every leading (batch, position) axis into
+        # the matmul M dim and restores them afterwards
+        lead = x.shape[:-1] if qp.per_position else (x.shape[0],)
+        x2 = (x.reshape(-1, x.shape[-1]) if qp.per_position
+              else x.reshape(x.shape[0], -1))
+        x_q = x2 if qp.int8_input else quantize_act(x2, s)
+        scales = torch.full((x2.shape[0],), f32(s), dtype=torch.float32,
+                            device=x2.device)
+        out = kops.int8_matmul(x_q, wq, scales, qp.w_scale, qp.bias,
+                               act=qp.act, requant_scale=qp.requant_scale)
+        if qp.per_position:
+            out = out.reshape(tuple(lead) + (out.shape[-1],))
+        return out
+    x_q = x if qp.int8_input else quantize_act(x, s)
+    return kops.conv2d_int8(
+        x_q, wq, qp.w_scale, qp.bias, x_scale=s,
+        stride=qp.stride, padding=qp.padding, act=qp.act,
+        requant_scale=qp.requant_scale)
+
+
+class LoweredPlan:
+    """**Lowered** stage: the program bound to one batch size."""
+
+    def __init__(self, plan: ExecutionPlan, batch_size: int, fn: Callable):
+        self.plan = plan
+        self.batch_size = batch_size
+        self.fn = fn
+        self._compiled: Optional[CompiledPlan] = None
+
+    def compile(self) -> "CompiledPlan":
+        if self._compiled is None:
+            self._compiled = CompiledPlan(self.plan, self.batch_size, self.fn)
+        return self._compiled
+
+
+class CompiledPlan:
+    """**Compiled** stage: calling it runs the plan at its batch size and
+    never lowers again. Carries its plan-time cost signature (modeled
+    FLOPs / bytes / J-per-inference / W of one dispatch) and its stage
+    decomposition, which the scheduler ranks and prices dispatches with."""
+
+    def __init__(self, plan: ExecutionPlan, batch_size: int, fn: Callable):
+        self.plan = plan
+        self.batch_size = batch_size
+        self._fn = fn
+        self.cost = plan.pipelined_cost_signature(batch_size)
+        self.stages = plan.stage_costs(batch_size)
+
+    @property
+    def n_traces(self) -> int:
+        return self.plan.n_traces
+
+    def __call__(self, inputs: Dict[str, torch.Tensor], rngs: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            return self._fn(inputs, rngs, self.plan.weight_arena)
+
+
+class EagerPlan(CompiledPlan):
+    """The cpu-backend stage: the flex plan, priced as the paper's ARM-CPU
+    '1x' eager baseline (PyTorch runs every plan eagerly, so only the
+    cost model differs from :class:`CompiledPlan`)."""
+
+    def __init__(self, plan: ExecutionPlan, batch_size: int):
+        self.plan = plan
+        self.batch_size = batch_size
+        self._fn = plan.batched_fn()
+        self.cost = plan.pipelined_cost_signature(batch_size, backend="cpu")
+        self.stages = plan.stage_costs(batch_size, backend="cpu")

@@ -1,0 +1,174 @@
+// conv2d_int8: NHWC int8 convolution, int32 accumulation, fused epilogue
+// f32(acc) * (w_scale[co] * x_scale) (+ bias[co]), act, optional requant.
+//
+// Replaces the Pallas kernel `conv2d_int8` (src/repro/kernels/conv2d.py,
+// `_kernel_int8`), which loaded a whole padded image into VMEM and ran
+// KH*KW shifted [W_out, Cin] x [Cin, Cout] matmuls per output row. Here:
+//   * a block owns an 8 x 32 tile of output pixels of one image, for all
+//     output channels. It stages the input patch the tile reads and the
+//     whole filter into shared memory, so each input byte and weight byte
+//     is read from device memory once per block (the zero padding of
+//     SAME convolutions is produced while staging: no padded copy of the
+//     input is ever written);
+//   * Cin is padded to a multiple of 4 with zeros in shared memory (the
+//     CNet stem has Cin = 2), so the inner loop is one __dp4a per 4 input
+//     channels; each thread computes 4 neighbouring output channels of
+//     one pixel, reading the input word once and the 4 weight words as one
+//     16-byte load;
+//   * the filter is stored tap-major, channel-minor ([tap][cout] words),
+//     so the 16-byte weight loads of a warp fall on distinct banks.
+// On the served shapes the bound is the memory traffic (the layer is far
+// below the card's int8 rate); this design's limit is its scalar __dp4a
+// issue rate, which later work replaces with tensor-core MMA.
+#include "common.cuh"
+
+constexpr int kRH = 8;        // output rows per block
+constexpr int kTW = 32;       // output columns per block
+constexpr int kThreads = 256;
+
+struct ConvArgs {
+  const int8_t* x;
+  const int8_t* w;
+  const float* w_scale;
+  const float* bias;
+  void* out;
+  int B, H, W, Cin, Cout, KH, KW, stride, pad_top, pad_left, Ho, Wo;
+  float x_scale;
+  int act, requant;
+  float inv;
+};
+
+struct Tiling {
+  int cin4, c4w, cout4, ncg, ph, pw, patch_bytes, weight_words;
+};
+
+__host__ __device__ inline Tiling tiling(const ConvArgs& a) {
+  Tiling t;
+  t.cin4 = (a.Cin + 3) & ~3;
+  t.c4w = t.cin4 / 4;
+  t.cout4 = (a.Cout + 3) & ~3;
+  t.ncg = t.cout4 / 4;
+  t.ph = (kRH - 1) * a.stride + a.KH;
+  t.pw = (kTW - 1) * a.stride + a.KW;
+  t.patch_bytes = ((t.ph * t.pw * t.cin4) + 15) & ~15;
+  t.weight_words = a.KH * a.KW * t.c4w * t.cout4;
+  return t;
+}
+
+__global__ void __launch_bounds__(kThreads) conv2d_int8_kernel(ConvArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiling t = tiling(a);
+  int8_t* patch = reinterpret_cast<int8_t*>(smem);
+  int* wsm = reinterpret_cast<int*>(smem + t.patch_bytes);
+  const int b = blockIdx.z;
+  const int ho0 = blockIdx.y * kRH;
+  const int wo0 = blockIdx.x * kTW;
+
+  // filter -> [tap][cout4] words, 4 input channels per word, zero padded
+  for (int i = threadIdx.x; i < t.weight_words; i += kThreads) {
+    const int co = i % t.cout4;
+    const int tw = i / t.cout4;
+    const int q = tw % t.c4w;
+    const int rc = tw / t.c4w;
+    unsigned int word = 0;
+    if (co < a.Cout) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ci = q * 4 + j;
+        if (ci < a.Cin)
+          word |= static_cast<unsigned int>(
+                      a.w[(static_cast<long long>(rc) * a.Cin + ci) * a.Cout +
+                          co] & 0xff) << (8 * j);
+      }
+    }
+    wsm[i] = static_cast<int>(word);
+  }
+  // input patch [ph][pw][cin4] bytes; SAME padding and tile overhang -> 0
+  const int patch_elems = t.ph * t.pw * t.cin4;
+  for (int i = threadIdx.x; i < patch_elems; i += kThreads) {
+    const int ci = i % t.cin4;
+    const int pix = i / t.cin4;
+    const int pc = pix % t.pw;
+    const int pr = pix / t.pw;
+    const int hi = ho0 * a.stride - a.pad_top + pr;
+    const int wi = wo0 * a.stride - a.pad_left + pc;
+    int8_t v = 0;
+    if (ci < a.Cin && hi >= 0 && hi < a.H && wi >= 0 && wi < a.W)
+      v = a.x[((static_cast<long long>(b) * a.H + hi) * a.W + wi) * a.Cin +
+              ci];
+    patch[i] = v;
+  }
+  __syncthreads();
+
+  const int items = kRH * kTW * t.ncg;
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int cg = it % t.ncg;
+    const int pix = it / t.ncg;
+    const int rr = pix / kTW, cc = pix % kTW;
+    const int ho = ho0 + rr, wo = wo0 + cc;
+    if (ho >= a.Ho || wo >= a.Wo) continue;
+    int acc0 = 0, acc1 = 0, acc2 = 0, acc3 = 0;
+    for (int r = 0; r < a.KH; ++r) {
+      for (int c = 0; c < a.KW; ++c) {
+        const int* prow = reinterpret_cast<const int*>(
+            patch + ((rr * a.stride + r) * t.pw + (cc * a.stride + c)) *
+                        t.cin4);
+        const int4* wrow = reinterpret_cast<const int4*>(
+                               wsm + (r * a.KW + c) * t.c4w * t.cout4) + cg;
+        for (int q = 0; q < t.c4w; ++q) {
+          const int xv = prow[q];
+          const int4 wv = wrow[q * t.ncg];
+          acc0 = __dp4a(xv, wv.x, acc0);
+          acc1 = __dp4a(xv, wv.y, acc1);
+          acc2 = __dp4a(xv, wv.z, acc2);
+          acc3 = __dp4a(xv, wv.w, acc3);
+        }
+      }
+    }
+    const int accs[4] = {acc0, acc1, acc2, acc3};
+    const long long base =
+        ((static_cast<long long>(b) * a.Ho + ho) * a.Wo + wo) * a.Cout;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = cg * 4 + j;
+      if (co >= a.Cout) break;
+      const float deq = __fmul_rn(a.w_scale[co], a.x_scale);
+      const float accf = __int2float_rn(accs[j]);
+      const float v = a.bias ? __fmaf_rn(accf, deq, a.bias[co])
+                             : __fmul_rn(accf, deq);
+      store_epilogue(a.out, base + co, v, a.act, a.requant, a.inv);
+    }
+  }
+}
+
+extern "C" int conv2d_int8_smem_bytes(int Cin, int Cout, int KH, int KW,
+                                      int stride) {
+  ConvArgs a{};
+  a.Cin = Cin; a.Cout = Cout; a.KH = KH; a.KW = KW; a.stride = stride;
+  const Tiling t = tiling(a);
+  return t.patch_bytes + 4 * t.weight_words;
+}
+
+extern "C" int conv2d_int8(const void* x, const void* w, const void* w_scale,
+                           const void* bias, void* out, int B, int H, int W,
+                           int Cin, int Cout, int KH, int KW, int stride,
+                           int pad_top, int pad_left, int Ho, int Wo,
+                           float x_scale, int act, int requant, float inv,
+                           void* stream) {
+  if (B == 0 || Ho == 0 || Wo == 0 || Cout == 0) return 0;
+  ConvArgs a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+             static_cast<const float*>(w_scale),
+             static_cast<const float*>(bias), out, B, H, W, Cin, Cout, KH, KW,
+             stride, pad_top, pad_left, Ho, Wo, x_scale, act, requant, inv};
+  const int smem = conv2d_int8_smem_bytes(Cin, Cout, KH, KW, stride);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv2d_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid((Wo + kTW - 1) / kTW, (Ho + kRH - 1) / kRH, B);
+  conv2d_int8_kernel<<<grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,116 @@
+"""INT8 x INT8 -> INT32 matmul with the fused dequant epilogue (the DPU
+analog's dense engine).
+
+Replaces the Pallas kernel ``int8_matmul`` (src/repro/kernels/int8_matmul.py,
+``_kernel``) with ``csrc/int8_matmul.cu``. On the served shapes (a batch of
+M <= 32 rows against fc1's [32769, 92] weights) the product is bound by
+reading the weight matrix once from device memory; the arithmetic is far
+below the card's int8 rate. The TPU kernel carried its accumulator over a
+sequential K grid axis; the CUDA kernel splits K across blocks instead,
+adds int32 partials atomically (exact, order-free), and the last block of
+each output tile applies the epilogue, so a layer is still one launch.
+
+Epilogue: ``fma((f32(acc) * x_scale[m]), w_scale[n], bias[n])`` (one
+rounding for the bias add, as the reference's backend computes it), then
+relu/sigmoid, then the optional requantize ``clip(rint(x * (1/s)))``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.epilogue import (apply_epilogue, dequant_bias,
+                                          normalize_act, out_dtype_for,
+                                          reciprocal_f32)
+
+# launches of the CUDA kernel (the plain version does not count)
+launches = 0
+
+_ACT_CODE = {None: 0, "relu": 1, "sigmoid": 2}
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _aligned_block(dim: int, target: int) -> int:
+    """Full ``target`` tiles when the dim is big enough, otherwise the dim
+    rounded up to a multiple of 8."""
+    if dim >= target:
+        return target
+    return -(-dim // 8) * 8
+
+
+def heuristic_blocks(m: int, k: int, n: int,
+                     bm: int = 128, bn: int = 128, bk: int = 128):
+    """The reference's default block choice for an [M, K] x [K, N] matmul,
+    kept for the autotuner's candidate pools (the CUDA kernel's own tile
+    is fixed: 16 rows x 128 columns x 128-deep K chunks)."""
+    return (min(bm, _aligned_block(m, bm)),
+            min(bn, _aligned_block(n, bn)),
+            min(bk, _aligned_block(k, bk)))
+
+
+def int8_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                      x_scale: torch.Tensor, w_scale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      act: Optional[str] = None,
+                      requant_scale: Optional[float] = None) -> torch.Tensor:
+    """The same function in plain PyTorch: the int32 sums are formed
+    exactly in float64 (|acc| <= 127^2 * K stays far below 2^53)."""
+    acc = x_q.double() @ w_q.double()
+    out = dequant_bias(acc, w_scale[None, :],
+                       None if bias is None else bias[None, :],
+                       pre=x_scale[:, None])
+    return apply_epilogue(out, act, requant_scale)
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
+                x_scale: torch.Tensor, w_scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, *,
+                relu: bool = False, act: Optional[str] = None,
+                requant_scale: Optional[float] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x_q`` [M, K] int8, ``w_q`` [K, N] int8, ``x_scale`` [M] f32
+    (per row), ``w_scale`` [N] f32 and ``bias`` [N] f32 (per output
+    column). Returns [M, N] ``out_dtype``, or int8 with ``requant_scale``."""
+    act = normalize_act(relu, act)
+    out_dtype = out_dtype_for(requant_scale, out_dtype)
+    m, k = x_q.shape
+    k2, n = w_q.shape
+    if (k != k2 or x_q.dtype != torch.int8 or w_q.dtype != torch.int8
+            or x_scale.shape != (m,) or w_scale.shape != (n,)
+            or (bias is not None and bias.shape != (n,))):
+        raise ValueError(
+            f"int8_matmul: x {tuple(x_q.shape)} {x_q.dtype}, w "
+            f"{tuple(w_q.shape)} {w_q.dtype}, x_scale "
+            f"{tuple(x_scale.shape)}, w_scale {tuple(w_scale.shape)}")
+    if build.on_cpu(x_q, w_q, x_scale, w_scale, bias):
+        out = int8_matmul_plain(x_q, w_q, x_scale, w_scale, bias, act,
+                                requant_scale)
+        return out.to(out_dtype)
+    global launches
+    x_q, w_q = x_q.contiguous(), w_q.contiguous()
+    x_scale = x_scale.float().contiguous()
+    w_scale = w_scale.float().contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
+    requant = requant_scale is not None
+    out = torch.empty((m, n), device=x_q.device,
+                      dtype=torch.int8 if requant else torch.float32)
+    lib = build.library("int8_matmul")
+    lib.int8_matmul_scratch_words.restype = ctypes.c_longlong
+    lib.int8_matmul_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
+    scratch = torch.zeros(lib.int8_matmul_scratch_words(m, n),
+                          dtype=torch.int32, device=x_q.device)
+    fn = lib.int8_matmul
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    rc = fn(build.ptr(x_q), build.ptr(w_q), build.ptr(x_scale),
+            build.ptr(w_scale), build.ptr(bias), build.ptr(out),
+            build.ptr(scratch), m, k, n, _ACT_CODE[act], int(requant),
+            reciprocal_f32(requant_scale) if requant else 0.0,
+            build.stream(x_q))
+    build.check(lib, rc, "int8_matmul")
+    launches += 1
+    return out if out.dtype == out_dtype else out.to(out_dtype)

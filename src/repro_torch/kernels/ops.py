@@ -1,0 +1,34 @@
+"""Public kernel API and the launch counters.
+
+Each wrapper takes its kernel's plain PyTorch version for CPU tensors and
+launches the hand-written CUDA kernel for CUDA tensors (raising if it
+cannot). The counters count CUDA launches only: a run reads them to show
+that its path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import conv2d as _conv2d
+from repro_torch.kernels import int8_matmul as _int8mm
+from repro_torch.kernels import quantize as _quant
+
+KERNEL_MODULES = {
+    "int8_matmul": _int8mm,
+    "conv2d_int8": _conv2d,
+    "quantize_apply": _quant,
+}
+
+int8_matmul = _int8mm.int8_matmul
+conv2d_int8 = _conv2d.conv2d_int8
+quantize_apply = _quant.quantize_apply
+quantize = _quant.quantize
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0

@@ -1,0 +1,169 @@
+"""Serving launcher — the paper's on-board inference scenario, space mode.
+
+Serves one or more space use-case models through the continuous-batching
+scheduler (engine + precompiled batch ladder + deadline flushing), with
+each use case's selective-downlink predicate. ``--model`` takes a comma
+list to co-serve several models; requests arrive on a per-model Poisson
+trace at ``--rate`` req/s. ``--backend`` takes a comma list (primary
+first); under ``--power-budget WATTS`` dispatch becomes energy-aware and
+falls back to the cheaper-power backends when the envelope refuses the
+primary.
+
+Runs on the card; ``--device cpu`` runs every kernel's plain PyTorch
+version on the CPU instead.
+
+Usage::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode space \\
+        --model cnet_plus_scalar --backend accel --requests 48 --batch 16
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.core import inspector
+from repro_torch.core.energy import PowerEnvelope
+from repro_torch.core.engine import Engine
+from repro_torch.core.scheduler import (BACKENDS, ContinuousBatchingScheduler,
+                                        capped_ladder, poisson_arrivals)
+from repro_torch.models import SPACE_MODELS, synthetic_requests
+
+# selective-downlink predicates per use case (the paper's decision layer)
+KEEP_PREDICATES = {
+    # MMS: keep only magnetosheath/magnetopause crossings (classes 2, 3)
+    "baseline_net": lambda out: int(out["region"]) >= 2,
+    "reduced_net": lambda out: int(out["region"]) >= 2,
+    "logistic_net": lambda out: int(out["region"]) >= 2,
+    # ESPERTA: keep if any of the six models warns
+    "multi_esperta": lambda out: any(
+        float(np.max(v)) > 0 for k, v in out.items() if k.startswith("warn")),
+    # CNet: keep high predicted X-ray flux
+    "cnet_plus_scalar": lambda out: float(np.max(list(out.values())[0])) > 0.0,
+    # VAE: everything downlinks (it IS the compressed product)
+    "vae_encoder": lambda out: True,
+}
+
+
+def build_scheduler(args) -> tuple:
+    """Parse the model/backend lists, build and calibrate one engine per
+    model, register each with the scheduler, and make the arrival trace.
+    Returns ``(scheduler, trace, engines)``."""
+    names = [n.strip() for n in args.model.split(",") if n.strip()]
+    unknown = [n for n in names if n not in SPACE_MODELS]
+    if unknown or not names:
+        raise SystemExit(f"unknown model(s) {unknown}; choose from "
+                         f"{', '.join(sorted(SPACE_MODELS))}")
+    backends = tuple(b.strip() for b in args.backend.split(",") if b.strip())
+    bad = [b for b in backends if b not in BACKENDS]
+    if bad or not backends:
+        raise SystemExit(f"unknown backend(s) {bad}; choose from "
+                         f"{', '.join(BACKENDS)}")
+    ladder = capped_ladder(args.batch)
+
+    envelope = None
+    if args.power_budget is not None or args.peak_w is not None:
+        envelope = PowerEnvelope(
+            sustained_w=(float("inf") if args.power_budget is None
+                         else args.power_budget),
+            peak_w=args.peak_w, burst_j=args.burst_j,
+            window_s=args.window_s)
+        print(f"[envelope] sustained={args.power_budget} W  "
+              f"peak={args.peak_w} W  burst={args.burst_j} J  "
+              f"window={args.window_s} s  clock={args.clock}")
+    elif args.burst_j != 0.0 or args.window_s != 10.0:
+        raise SystemExit("--burst-j/--window-s configure the power "
+                         "envelope; pass --power-budget and/or --peak-w "
+                         "to enable it")
+    sched = ContinuousBatchingScheduler(envelope=envelope, clock=args.clock,
+                                        pipeline=args.pipeline,
+                                        staging_buffers=args.staging_buffers)
+    if args.pipeline:
+        print(f"[pipeline] async ticket dispatch on, "
+              f"{args.staging_buffers} staging buffer(s) per (model, rung)")
+
+    trace, engines = [], {}
+    for mi, name in enumerate(names):
+        m = SPACE_MODELS[name]
+        graph = m.build_graph()
+        engine = Engine(graph, m.init_params(1), fuse=not args.no_fuse,
+                        device=args.device)
+        print(inspector.inspect(graph).summary())
+        reqs = synthetic_requests(m, args.requests, seed=mi)
+        if "accel" in backends:
+            print(f"[ptq] {name}: calibrating on 4 samples")
+            engine.calibrate(reqs[:4])
+        sched.register(name, engine, backend=backends, ladder=ladder,
+                       keep_predicate=KEEP_PREDICATES.get(name),
+                       warmup_sample=reqs[0] if reqs else None)
+        engines[name] = engine
+        trace += [(t, name, r) for t, r in
+                  zip(poisson_arrivals(args.rate, args.requests, seed=mi),
+                      reqs)]
+    return sched, trace, engines
+
+
+def serve_space(args) -> int:
+    sched, trace, _ = build_scheduler(args)
+    t0 = time.perf_counter()
+    end = sched.serve_trace(trace)
+    wall = time.perf_counter() - t0
+    print(f"[serve] {len(trace)} requests over {len(sched.models)} model(s)  "
+          f"virtual={end:.3f} s  wall={wall:.3f} s")
+    print(sched.summary())
+    return 0
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="space", choices=["space"])
+    ap.add_argument("--model", default="cnet_plus_scalar",
+                    help="comma list of space models to co-serve "
+                         f"({', '.join(sorted(SPACE_MODELS))})")
+    ap.add_argument("--backend", default="flex",
+                    help="comma list of backends, primary first "
+                         "(cpu, flex, accel); later entries are the "
+                         "power-envelope fallbacks")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("--requests", type=int, default=64,
+                    help="requests per model")
+    ap.add_argument("--batch", type=int, default=16,
+                    help="top batch-ladder rung")
+    ap.add_argument("--rate", type=float, default=256.0,
+                    help="per-model Poisson arrival rate (req/s)")
+    ap.add_argument("--power-budget", type=float, default=None,
+                    help="sustained power budget in W (enables "
+                         "energy-aware dispatch)")
+    ap.add_argument("--peak-w", type=float, default=None,
+                    help="instantaneous power cap in W")
+    ap.add_argument("--burst-j", type=float, default=0.0,
+                    help="burst energy allowance in J per window")
+    ap.add_argument("--window-s", type=float, default=10.0,
+                    help="sliding accounting window in s")
+    ap.add_argument("--clock", default="measured",
+                    choices=["measured", "modeled"],
+                    help="virtual-clock source: wall time per batch or the "
+                         "plan's modeled latency (deterministic)")
+    ap.add_argument("--pipeline", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="async pipelined dispatch: staging/compute/"
+                         "readback overlap across batches")
+    ap.add_argument("--staging-buffers", type=int, default=2,
+                    help="host staging slots per (model, rung) = max "
+                         "in-flight dispatches (2 = double buffering)")
+    ap.add_argument("--no-fuse", action="store_true",
+                    help="skip the graph-compiler pass pipeline and serve "
+                         "the op-by-op plans")
+    return ap
+
+
+def main(argv=None) -> int:
+    return serve_space(parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
