@@ -2,15 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
-holds each kernel bit-exact against its plain PyTorch version at the
-shapes the served model gives it and times both, then serves
-cnet_plus_scalar at full published width on the int8 ``accel`` backend
-through the continuous-batching scheduler, checks from the launch counters
-that the served path ran the kernels, and holds the served outputs
-bit-exact against the port's CPU engine (the plain versions) sharing the
-same weights and calibration. Any failed phase makes the exit code
-non-zero; the last line is a JSON verdict only on success.
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
+(one process per source, all at once), holds each kernel against its
+plain PyTorch version at the shapes the served models give it and times
+both, then drives the port's two served paths through their launcher
+functions:
+
+* cnet_plus_scalar at full published width on the int8 ``accel`` backend
+  through the continuous-batching scheduler, held bit-exact against the
+  port's CPU engine (the plain versions) sharing weights and calibration;
+* the telemetry LM's decoder block at zamba2-1.2b widths on ``accel``
+  through the LM scheduler (8 requests of 16 tokens over 4 KV slots),
+  with the per-dispatch launch counts checked, then one request's prefill
+  and 4 decode steps held against the port's CPU engine.
+
+The launch counters show that each path ran its kernels (counts are set
+to 0 just before a path is driven and read just after); a profiler pass
+breaks each path's device time down by kernel. Any failed phase makes the
+exit code non-zero; the last line is a JSON verdict only on success.
 
 Needs a CUDA card and the repository's ``src/`` beside this file. Imports
 nothing of the JAX package.
@@ -35,6 +44,17 @@ PEAK_FP32_OPS_S = 67e12
 BATCH = 16
 LADDER_TOP = 16
 N_REQUESTS = 48
+
+# the LM slice: zamba2-1.2b widths, 8 requests x 16 tokens over 4 slots
+LM_REQUESTS = 8
+LM_TOKENS = 16
+LM_SLOTS = 4
+LM_REF_STEPS = 4
+# card vs CPU engine on the LM's accel path (see lm_reference_phase)
+LM_LOGITS_ATOL = 2e-2
+# the kernels each served path must launch
+CNN_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply")
+LM_KERNELS = ("int8_matmul", "quantize_apply", "flash_attention", "ssd")
 
 FAILURES = []
 
@@ -98,6 +118,34 @@ def library_ms(torch, xl, wl, flush):
     return None
 
 
+def close(torch, got, want, tol: float) -> float:
+    """Max |got - want|; raises unless within ``tol`` (absolute and
+    relative) and finite."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite values")
+    err = float((got.double() - want.double()).abs().max())
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    return err
+
+
+def device_rows(torch, prof):
+    """(device us, count, name) of the profile's device-side events
+    (kernels, copies), largest first. The CPU-side operator rows carry the
+    device time of the kernels they launched too; summing both would
+    count that time twice."""
+    cpu = torch.autograd.DeviceType.CPU
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type != cpu and dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    return sorted(rows, reverse=True)
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -155,14 +203,20 @@ def _print_case(c):
           f"({c['bound_by']}) max_abs_err={c['err']}")
 
 
-@phase("int8_matmul vs plain (fc1 and head at B=16)")
+@phase("int8_matmul vs plain (CNet fc1 and head at B=16; the LM's emb, "
+       "prefill head at B=4 x 2048 positions and decode head at 4 lanes)")
 def matmul_phase(torch, gen, flush):
     from repro_torch.kernels import int8_matmul as mm
     dev = "cuda"
     cases = []
-    # (M, K, N, act, requant, bias): fc1 = dense+relu+requant, head = dense
+    # (M, K, N, act, requant): fc1 = dense+relu+requant, head = dense; the
+    # LM's per-position projections fold batch x positions into M
     for m, k, n, act, rq in ((BATCH, 32769, 92, "relu", 0.0123456789),
-                             (BATCH, 92, 1, None, None)):
+                             (BATCH, 92, 1, None, None),
+                             (4 * 2048, 2048, 2048, None, 0.0153),
+                             (4 * 2048, 2048, 32000, None, None),
+                             (LM_SLOTS, 2048, 32000, None, None)):
+        big = m * n > 1 << 24
         x = torch.randint(-127, 128, (m, k), generator=gen,
                           dtype=torch.int8).to(dev)
         w = torch.randint(-127, 128, (k, n), generator=gen,
@@ -175,9 +229,10 @@ def matmul_phase(torch, gen, flush):
         ref = mm.int8_matmul_plain(x, w, xs, ws, b, act, rq)
         err = exact(torch, out, ref)
         t = device_ms(torch, lambda: mm.int8_matmul(
-            x, w, xs, ws, b, act=act, requant_scale=rq), 50, flush)
+            x, w, xs, ws, b, act=act, requant_scale=rq), 10 if big else 50,
+            flush)
         tp = device_ms(torch, lambda: mm.int8_matmul_plain(
-            x, w, xs, ws, b, act, rq), 10, flush)
+            x, w, xs, ws, b, act, rq), 3 if big else 10, flush)
         # torch._int_mm (int8 x int8 -> int32, matmul only, no epilogue)
         # needs M > 16 and K, N multiples of 8: time it on the shape
         # rounded up to what it accepts
@@ -186,6 +241,7 @@ def matmul_phase(torch, gen, flush):
         wl = torch.zeros((kp, np_), dtype=torch.int8, device=dev)
         xl[:m, :k], wl[:k, :n] = x, w
         tl = library_ms(torch, xl, wl, flush)
+        del xl, wl
         out_bytes = m * n * (1 if rq is not None else 4)
         nbytes = m * k + k * n + 4 * (m + 2 * n) + out_bytes
         bms, by = bound_ms(nbytes, 2.0 * m * k * n, PEAK_INT8_OPS_S)
@@ -262,6 +318,121 @@ def quantize_phase(torch, gen, flush):
                           "src/repro/kernels/quantize.py:49", cases)
 
 
+def _causal_pairs(sq: int, sk: int) -> int:
+    """(query, key) pairs a top-left-aligned causal mask keeps."""
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+@phase("flash_attention vs plain (the LM's prefill shape, a ragged GQA "
+       "shape, a non-causal shape)")
+def flash_phase(torch, gen, flush):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    dev = "cuda"
+    cases = []
+    # (B, Sq, Sk, Hq, Hkv, hd, causal)
+    for b, sq, sk, hq, hkv, hd, causal in ((4, 2048, 2048, 32, 32, 64, True),
+                                           (2, 37, 37, 4, 2, 8, True),
+                                           (1, 512, 512, 32, 32, 64, False)):
+        q = torch.randn((b, sq, hq, hd), generator=gen).to(dev)
+        k = torch.randn((b, sk, hkv, hd), generator=gen).to(dev)
+        v = torch.randn((b, sk, hkv, hd), generator=gen).to(dev)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = close(torch, out, fa.flash_attention_plain(q, k, v, causal),
+                    2e-5)
+        t = device_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=causal), 20, flush)
+        tp = device_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal), 5, flush)
+        # the yardstick: PyTorch's fused attention on [B, H, S, hd] fp32
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        tl = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20, flush)
+        pairs = _causal_pairs(sq, sk) if causal else sq * sk
+        ops = 4.0 * b * hq * pairs * hd            # QK^T and PV
+        nbytes = 4 * (2 * b * sq * hq * hd + 2 * b * sk * hkv * hd)
+        bms, by = bound_ms(nbytes, ops, PEAK_FP32_OPS_S)
+        cases.append(dict(shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
+                          f"hd={hd} causal={causal}", err=err, ms=t,
+                          plain_ms=tp, library_ms=tl, bound_ms=bms,
+                          bound_by=by))
+        _print_case(cases[-1])
+        print(f"     {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+    print("   tolerance 2e-5 (abs and rel) against the plain version; "
+          "library_ms: F.scaled_dot_product_attention fp32 on [B,H,S,hd]")
+    return _kernel_record("flash_attention",
+                          "src/repro_torch/csrc/flash_attention.cu",
+                          "src/repro/kernels/flash_attention.py:115", cases)
+
+
+@phase("ssd vs plain (the LM's prefill shape, S not a multiple of the "
+       "chunk, a split run carrying init_state)")
+def ssd_phase(torch, gen, flush):
+    from repro_torch.kernels import ssd as sd
+    dev = "cuda"
+    cases = []
+
+    def inputs(b, s, h, p, n):
+        x = torch.randn((b, s, h, p), generator=gen).to(dev)
+        B_ = torch.randn((b, s, n), generator=gen).to(dev)
+        C_ = torch.randn((b, s, n), generator=gen).to(dev)
+        dt = (torch.rand((b, s, h), generator=gen) * 0.5 + 0.05).to(dev)
+        A = (-(torch.rand(h, generator=gen) + 0.5)).to(dev)
+        return x, B_, C_, dt, A
+
+    # (B, S, H, P, N, chunk)
+    for b, s, h, p, n, chunk in ((4, 2048, 64, 64, 64, 256),
+                                 (1, 1000, 64, 64, 64, 256)):
+        x, B_, C_, dt, A = inputs(b, s, h, p, n)
+        q = sd.chunk_size(s, chunk)
+        y, fin = sd.ssd(x, B_, C_, dt, A, chunk=chunk)
+        torch.cuda.synchronize()
+        y_p, fin_p = sd.ssd_plain(x, B_, C_, dt, A, None, chunk)
+        err = max(close(torch, y, y_p, 1e-4), close(torch, fin, fin_p, 1e-4))
+        t = device_ms(torch, lambda: sd.ssd(x, B_, C_, dt, A, chunk=chunk),
+                      20, flush)
+        tp = device_ms(torch, lambda: sd.ssd_plain(x, B_, C_, dt, A, None,
+                                                   chunk), 5, flush)
+        # the work the function needs: C B^T and M x on and below each
+        # chunk's diagonal (L is lower-triangular), then C state^T and
+        # the state update; the full Q x Q square is printed only as
+        # information (the reference forms it, the kernel does not)
+        n_chunks = s // q
+        ops = b * h * n_chunks * (q * (q + 1) * (n + p) + 4.0 * q * p * n)
+        square = b * h * n_chunks * (2.0 * q * q * (n + p) + 4.0 * q * p * n)
+        nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + h
+                      + b * h * p * n)
+        bms, by = bound_ms(nbytes, ops, PEAK_FP32_OPS_S)
+        cases.append(dict(shape=f"B={b} S={s} H={h} P={p} N={n} Q={q}",
+                          err=err, ms=t, plain_ms=tp, library_ms=None,
+                          bound_ms=bms, bound_by=by))
+        _print_case(cases[-1])
+        print(f"     {ops / 1e9:.2f} GFLOP on and below the diagonal "
+              f"(the bound; {square / 1e9:.2f} GFLOP over the full Q x Q "
+              f"square), {nbytes / 1e6:.1f} MB")
+    # a split run: two halves with the carried state equal the whole run
+    x, B_, C_, dt, A = inputs(4, 2048, 64, 64, 64)
+    y, fin = sd.ssd(x, B_, C_, dt, A)
+    half = 1024
+    y1, st = sd.ssd(x[:, :half], B_[:, :half], C_[:, :half], dt[:, :half], A)
+    y2, fin2 = sd.ssd(x[:, half:], B_[:, half:], C_[:, half:], dt[:, half:],
+                      A, st)
+    torch.cuda.synchronize()
+    y2_p, fin2_p = sd.ssd_plain(x[:, half:], B_[:, half:], C_[:, half:],
+                                dt[:, half:], A, st)
+    err = max(close(torch, torch.cat([y1, y2], 1), y, 1e-4),
+              close(torch, fin2, fin, 1e-4),
+              close(torch, y2, y2_p, 1e-4), close(torch, fin2_p, fin2, 1e-4))
+    print(f"   split run with init_state: max |diff| {err} against the "
+          f"whole run and the plain version")
+    cases[0]["err"] = max(cases[0]["err"], err)
+    print("   tolerance 1e-4 (abs and rel) against the plain version; "
+          "library_ms: none (PyTorch has no SSD scan)")
+    return _kernel_record("ssd", "src/repro_torch/csrc/ssd.cu",
+                          "src/repro/kernels/ssd.py:100", cases)
+
+
 @phase("profile: device time by kernel over served B=16 dispatches")
 def profile_phase(torch, engine, inputs):
     """Where one full-rung dispatch's device time goes (torch.profiler,
@@ -284,13 +455,7 @@ def profile_phase(torch, engine, inputs):
     except RuntimeError as e:        # the tracer itself, not the port
         print(f"   torch.profiler failed ({e}): not measured")
         return None
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = device_rows(torch, prof)
     busy = sum(r[0] for r in rows) * 1e-6
     if not rows:
         print("   profiler recorded no device time: not measured")
@@ -362,6 +527,192 @@ def reference_phase(torch, sched, card_engine, inputs):
           f"reference took {time.perf_counter() - t0:.1f} s")
 
 
+@phase("main path: serve the LM block at zamba2-1.2b widths on accel "
+       "through the LM scheduler")
+def lm_serve_phase(torch):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm as lm_model
+    args = serve.parser().parse_args([
+        "--mode", "lm", "--backend", "accel", "--requests",
+        str(LM_REQUESTS), "--tokens", str(LM_TOKENS), "--slots",
+        str(LM_SLOTS)])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched, lm = serve.build_lm_scheduler(args, lm_model.ZAMBA2_1_2B)
+    setup = time.perf_counter() - t0
+    calib = ops.launch_counts()
+    print(f"   setup (weights, calibration on 8 windows, engine) {setup:.2f} "
+          f"s; launches in calibration: {calib}")
+    n_q = len(lm.plan.qplans)
+    print(f"   {n_q} quantized node(s) (PTQ demoted {lm.plan.demoted}); "
+          f"KV capacity {lm.capacity}")
+    # drive the launcher's loop (LMScheduler.run) one dispatch at a time
+    # to read the counters around each dispatch
+    steps = []
+    t0 = time.perf_counter()
+    while True:
+        before = ops.launch_counts()
+        traces = lm.n_traces
+        if not sched.step():
+            break
+        after = ops.launch_counts()
+        kind = sched.events[-1].phase       # 'prefill' | 'decode'
+        steps.append((kind, {k: after[k] - before[k] for k in after},
+                      traces, lm.n_traces))
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    tel = sched.telemetry()
+    print(sched.summary())
+    pre = [d for k, d, _, _ in steps if k == "prefill"]
+    dec = [d for k, d, _, _ in steps if k == "decode"]
+    print(f"   served {tel.n_completed}/{LM_REQUESTS} requests, "
+          f"{tel.n_tokens} tokens in {wall:.3f} s wall: {len(pre)} prefill "
+          f"dispatches (p50 {tel.prefill_p50_ms:.3f} ms each, B={LM_SLOTS} "
+          f"x {lm.seq_len} positions), {len(dec)} decode steps (p50 "
+          f"{tel.decode_step_p50_ms:.3f} ms each)")
+    print(f"   launches per prefill {pre[0]}; per decode step {dec[0]}")
+    print(f"   launch counts over the served run: "
+          f"{ {k: counts[k] - calib[k] for k in counts} }")
+    assert tel.n_completed == LM_REQUESTS, tel.n_completed
+    assert all(len(c.tokens) == LM_TOKENS for c in sched.completions)
+    assert lm.slots.in_use == 0
+    for d in pre:
+        assert d["flash_attention"] == 1 and d["ssd"] == 1, d
+        assert d["int8_matmul"] == n_q, d
+    for d in dec:
+        assert d["flash_attention"] == 0 and d["ssd"] == 0, d
+        assert d["int8_matmul"] == n_q, d
+    late = [(t0_, t1_) for k, _, t0_, t1_ in steps if k == "decode"]
+    late = late[len(late) // 2:]
+    assert all(t0_ == t1_ for t0_, t1_ in late), late
+    for c in sched.completions:
+        assert all(0 <= t < lm_model.ZAMBA2_1_2B.vocab for t in c.tokens)
+    return sched, lm, counts
+
+
+def _head_logits(torch, lm, hidden):
+    """The vocab head on ``hidden`` [R, D], as the decode program computes
+    it (the same quantized-node call on the same weights)."""
+    from repro_torch.core.plan import _run_quantized
+    plan = lm.plan
+    x = torch.as_tensor(hidden, device=lm.device)
+    with torch.no_grad():
+        return _run_quantized(plan.qplans["head"], x,
+                              w_q=plan.weight_arena["head"]).cpu()
+
+
+@phase("LM reference: one request, prefill + 4 decode steps, card vs the "
+       "port's CPU engine at full width")
+def lm_reference_phase(torch, lm):
+    """Request 0's prompt through a fresh LMEngine on the card and one on
+    the CPU (same weights and calibration). Each decode step feeds both
+    engines the CPU's feedback features, so a step's difference is that
+    step's own and cannot compound through the feedback loop."""
+    import numpy as np
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.lm import LMEngine
+    served = lm.engine
+    card = Engine(served.graph, served.params, device=served.device)
+    cpu = Engine(served.graph, {n: {k: v.cpu() for k, v in p.items()}
+                                for n, p in served.params.items()},
+                 device="cpu")
+    for e in (card, cpu):
+        e.share_calibration(served)
+    lms = {name: LMEngine(e, "accel", n_slots=1,
+                          max_new_tokens=LM_REF_STEPS + 1)
+           for name, e in (("card", card), ("cpu", cpu))}
+    x = np.random.default_rng(7).normal(
+        size=(1, lm.seq_len, lm.d_model)).astype(np.float32) * 0.5
+    slot = np.zeros(1, np.int32)
+    seconds = dict.fromkeys(lms, 0.0)
+
+    def run(name, step):
+        t0 = time.perf_counter()
+        res = step(lms[name])
+        out = (res, _head_logits(torch, lms[name], res.hidden))
+        seconds[name] += time.perf_counter() - t0
+        return out
+
+    steps = [{n: run(n, lambda e: e.prefill(x, slot)) for n in lms}]
+    for w in ("k_codes", "k_scale", "v_codes", "v_scale"):
+        exact(torch, lms["card"].caches["attn"][w][0, :lm.seq_len].cpu(),
+              lms["cpu"].caches["attn"][w][0, :lm.seq_len])
+    print("   prefill K/V cache codes and f16 scales: bit-exact")
+    for _ in range(LM_REF_STEPS):
+        hidden = steps[-1]["cpu"][0].hidden
+        steps.append({n: run(n, lambda e: e.decode_step(hidden, slot))
+                      for n in lms})
+    print(f"   prefill + {LM_REF_STEPS} decode steps: card "
+          f"{seconds['card']:.1f} s, CPU {seconds['cpu']:.1f} s")
+    st = [lms[n].caches["ssm"]["state"][0].cpu() for n in ("card", "cpu")]
+    print(f"   SSD cache state after the steps: max |diff| "
+          f"{float((st[0] - st[1]).abs().max()):.3g}")
+    worst, bad = 0.0, []
+    for i, step in enumerate(steps):
+        (res_g, lg_g), (res_c, lg_c) = step["card"], step["cpu"]
+        e_l = float((lg_g - lg_c).abs().max())
+        e_h = float(np.abs(res_g.hidden - res_c.hidden).max())
+        top2 = torch.topk(lg_c[0], 2).values
+        margin = float(top2[0] - top2[1])
+        tg, tc = int(res_g.tokens[0]), int(res_c.tokens[0])
+        print(f"   step {i}: logits max |diff| {e_l:.3g} (|logits| <= "
+              f"{float(lg_c.abs().max()):.3g}), resid2 max |diff| {e_h:.3g}, "
+              f"token card {tg} cpu {tc} (CPU top-2 margin {margin:.3g})")
+        if not (np.isfinite(res_g.hidden).all()
+                and bool(torch.isfinite(lg_g).all())):
+            bad.append(f"step {i}: non-finite")
+        if margin > 2 * LM_LOGITS_ATOL and tg != tc:
+            bad.append(f"step {i}: tokens differ")
+        worst = max(worst, e_l, e_h)
+    assert worst <= LM_LOGITS_ATOL and not bad, (worst, bad)
+    print(f"   logits and resid2 within {LM_LOGITS_ATOL} (worst {worst:.3g})")
+
+
+@phase("profile: device time by kernel over one B=4 LM prefill and one "
+       "decode step")
+def lm_profile_phase(torch, lm):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    x = np.random.default_rng(11).normal(
+        size=(LM_SLOTS, lm.seq_len, lm.d_model)).astype(np.float32) * 0.5
+    ids = [f"profile{i}" for i in range(LM_SLOTS)]
+    slots = np.array([lm.assign_slot(r) for r in ids], np.int32)
+    res = lm.prefill(x, slots)                  # warm both programs
+    lm.decode_step(res.hidden, slots)
+    out = {}
+    for kind in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if kind == "prefill":
+                    res = lm.prefill(x, slots)
+                else:
+                    lm.decode_step(res.hidden, slots)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        except RuntimeError as e:        # the tracer itself, not the port
+            print(f"   torch.profiler failed ({e}): not measured")
+            break
+        rows = device_rows(torch, prof)
+        busy = sum(r[0] for r in rows) * 1e-6
+        if not rows:
+            print(f"   {kind}: profiler recorded no device time: "
+                  f"not measured")
+            continue
+        print(f"   one {kind} (B={LM_SLOTS}): wall {wall * 1e3:.3f} ms, "
+              f"device busy {busy * 1e3:.3f} ms, idle share "
+              f"{1 - busy / wall:.3f}")
+        for dev_us, count, key in rows[:12]:
+            print(f"   {dev_us / 1e3:9.4f} ms  x{count:<5d} {key[:70]}")
+        out[kind] = busy
+    for r in ids:
+        lm.release_slot(r)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this file",
@@ -382,21 +733,37 @@ def main() -> int:
     if build_phase() is not None:
         gen = torch.Generator().manual_seed(0)
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        for ph in (matmul_phase, conv_phase, quantize_phase):
+        for ph in (matmul_phase, conv_phase, quantize_phase, flash_phase,
+                   ssd_phase):
             rec = ph(torch, gen, flush)
             if rec is not None:
                 records.append(rec)
         del flush
+        torch.cuda.empty_cache()
+        paths = {}                      # served path -> its launch counts
         served = serve_phase(torch)
         if served is not None:
             sched, engine, counts, inputs = served
+            paths["cnet_plus_scalar"] = (CNN_KERNELS, counts)
             reference_phase(torch, sched, engine, inputs)
             profile_phase(torch, engine, inputs)
-            for rec in records:
-                rec["launches"] = counts[rec["name"]]
-                if rec["launches"] == 0:
-                    FAILURES.append(f"{rec['name']} never launched")
-    if len(records) != 3:
+            del sched, engine, inputs
+            torch.cuda.empty_cache()
+        served = lm_serve_phase(torch)
+        if served is not None:
+            sched, lm, counts = served
+            paths["lm"] = (LM_KERNELS, counts)
+            lm_reference_phase(torch, lm)
+            lm_profile_phase(torch, lm)
+        if len(paths) != 2:
+            FAILURES.append("a served path failed")
+        for path, (names, counts) in paths.items():
+            print(f"launches on the {path} path: {counts}")
+            FAILURES.extend(f"{n} never launched on the {path} path"
+                            for n in names if counts[n] == 0)
+        for rec in records:
+            rec["launches"] = sum(c[rec["name"]] for _, c in paths.values())
+    if len(records) != 5:
         FAILURES.append("kernel records missing")
     print(json.dumps({"kernels": records}), flush=True)
     print(gpu_line(), flush=True)

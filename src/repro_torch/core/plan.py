@@ -16,8 +16,9 @@
 Layout is NHWC at every graph value, as in the reference: library ops
 that want channels first (convolution, pooling) permute inside. Every
 int8 conv2d/dense runs the hand-written kernels through
-:func:`_run_quantized`. Random ops (VAE sampling) and the LM kernels are
-not ported yet; a graph that needs them is refused at plan time.
+:func:`_run_quantized`; the LM block's ``attention`` and ``ssd`` nodes run
+the flash-attention and SSD kernels. Random ops (VAE sampling) are not
+ported yet; a graph that needs them is refused at plan time.
 """
 from __future__ import annotations
 
@@ -107,6 +108,26 @@ def _reshape_b(x, a):
     return x.reshape((x.shape[0],) + tuple(tgt))
 
 
+def _attention_b(xs, a):
+    """Batched flash attention over [B, S, H, hd] q/k/v. ``kv_int8``
+    round-trips K/V through the per-(pos, head) int8 quantizer — the same
+    codes the KV-cache arena stores, so prefill output equals what cached
+    decode reconstructs."""
+    q, k, v = (t.float() for t in xs)
+    if a.get("kv_int8", False):
+        from repro_torch.core import lm_quant
+        k = lm_quant.dequantize_kv(*lm_quant.quantize_kv(k), torch.float32)
+        v = lm_quant.dequantize_kv(*lm_quant.quantize_kv(v), torch.float32)
+    return kops.flash_attention(q, k, v, causal=a.get("causal", True),
+                                bq=a.get("bq", 256), bk=a.get("bk", 256))
+
+
+def _ssd_b(xs, p, a):
+    x, B_, C_, dt = (t.float() for t in xs)
+    y, _ = kops.ssd(x, B_, C_, dt, p["A"], chunk=a.get("chunk", 256))
+    return y
+
+
 def _concat_axis(a) -> int:
     ax = a.get("axis", -1)
     return ax + 1 if ax >= 0 else ax
@@ -120,6 +141,8 @@ BATCHED_OP_IMPLS: Dict[str, Callable] = {
     "maxpool3d": lambda x, p, a, rng: _pool_b(x[0], a, 3, "max"),
     "avgpool3d": lambda x, p, a, rng: _pool_b(x[0], a, 3, "avg"),
     "dense": lambda x, p, a, rng: _dense_b(x[0], p, a),
+    "attention": lambda x, p, a, rng: _attention_b(x, a),
+    "ssd": lambda x, p, a, rng: _ssd_b(x, p, a),
     "reshape": lambda x, p, a, rng: _reshape_b(x[0], a),
     "flatten": lambda x, p, a, rng: x[0].reshape(x[0].shape[0], -1),
     "relu": lambda x, p, a, rng: torch.clamp_min(x[0], 0.0),
@@ -240,6 +263,9 @@ class ExecutionPlan:
         self.fused_into: Dict[str, str] = {}    # legacy: relu node -> producer
         self.pass_report: Optional[PassReport] = None
         self.arena: Optional[memory_mod.ArenaPlan] = None
+        # static KV-cache arena (LM decode): attached after construction
+        # by the LM engine through attach_kv_plan()
+        self.kv_plan: Optional[memory_mod.KVCachePlan] = None
 
         if backend == "accel":
             if quant is None:
@@ -361,8 +387,12 @@ class ExecutionPlan:
         hw = energy_mod.BACKEND_HW[self.backend]
         w_bytes = energy_mod.weight_bytes(self.graph, self.backend,
                                           self._quantized_names(), None)
-        budget = max(int(hw.onchip_bytes) - w_bytes, 0) \
-            if w_bytes <= hw.onchip_bytes else int(hw.onchip_bytes)
+        # BRAM-resident KV slots shrink the activation budget exactly
+        # like resident weights do
+        kv_bram = self.kv_plan.bram_bytes if self.kv_plan is not None else 0
+        resident = w_bytes + kv_bram
+        budget = max(int(hw.onchip_bytes) - resident, 0) \
+            if resident <= hw.onchip_bytes else int(hw.onchip_bytes)
         act_dtype = {}
         for name, node in self.graph.nodes.items():
             if (node.attrs.get("int8")
@@ -463,12 +493,28 @@ class ExecutionPlan:
         Fused plans price DDR traffic from the static arena; the eager
         cpu view and unfused plans keep the op-by-op bytes model."""
         if self.arena is not None and backend is None:
-            return energy_mod.plan_cost_signature(
+            return self._charge_kv(energy_mod.plan_cost_signature(
                 self.graph, self.backend, batch_size, self.arena,
-                quantized=self._quantized_names())
-        return energy_mod.cost_signature(
+                quantized=self._quantized_names()))
+        return self._charge_kv(energy_mod.cost_signature(
             self.graph, backend or self.backend, batch_size,
-            quantized=self._quantized_names())
+            quantized=self._quantized_names()))
+
+    def attach_kv_plan(self, kv_plan: memory_mod.KVCachePlan) -> None:
+        """Charge a static KV-cache arena to this plan: BRAM-resident
+        slots shrink the activation-arena budget exactly like resident
+        weights, and every cost signature reports the packed KV footprint
+        (``kv_resident_bytes``)."""
+        self.kv_plan = kv_plan
+        if self.arena is not None:
+            self.arena = self._plan_arena()
+
+    def _charge_kv(self, sig: energy_mod.CostSignature
+                   ) -> energy_mod.CostSignature:
+        if self.kv_plan is None:
+            return sig
+        return dataclasses.replace(
+            sig, kv_resident_bytes=float(self.kv_plan.total_bytes))
 
     def stage_costs(self, batch_size: int,
                     backend: Optional[str] = None
@@ -518,6 +564,8 @@ class ExecutionPlan:
                 f"  arena: peak {a.bram_peak:,}/{a.bram_budget:,} B BRAM, "
                 f"{a.n_spilled} spill(s), "
                 f"{a.ddr_bytes_per_sample:,} DDR B/sample")
+        if self.kv_plan is not None:
+            lines.append("  " + self.kv_plan.summary())
         return "\n".join(lines)
 
     def as_text(self) -> str:

@@ -59,6 +59,10 @@ Two driving modes share the same ``step()`` core:
   benchmarks and property tests drive.
 * ``start()/submit()/stop()`` — a background dispatcher thread against
   the wall clock, for asynchronous producers.
+
+``LMScheduler`` (at the end) is the LM's own loop: prefill admission on a
+rung ladder, then batched decode steps over the in-flight requests' KV
+slots, streaming tokens as they retire.
 """
 from __future__ import annotations
 
@@ -1006,3 +1010,331 @@ class ContinuousBatchingScheduler:
                 f"{ov['pipelined_span_s']:.4f} s pipelined over "
                 f"{ov['n_dispatches']} dispatches)  occupancy[{occ}]")
         return "\n".join(lines)
+
+# ---------------------------------------------------------------------------
+# LM serving: the prefill/decode rung ladder
+# ---------------------------------------------------------------------------
+#
+# Autoregressive decode is a different shape of workload from the frame
+# stream above: a request is admitted ONCE (prefill — compute-bound, rides
+# the same compiled batch-size ladder as the CNNs), then produces tokens
+# over MANY small steps (decode — memory-bound, batched across every
+# in-flight request at its KV slot). ``LMScheduler`` owns that loop:
+#
+# * prefill dispatches at the largest ladder rung the waiting queue
+#   fills, flushing a ragged tail early when the oldest waiting request's
+#   deadline slack falls under a safety margin of the estimated remaining
+#   work (EWMA-measured prefill + per-token decode times) — the same
+#   wait-to-fill / deadline-flush trade the frame scheduler makes;
+# * decode steps batch ALL in-flight requests at the smallest decode rung
+#   that holds them, padding dead lanes to the engine's scratch slot, so
+#   rung programs are traced once and steady-state decode never re-traces
+#   and never allocates (the LMEngine's n_traces / KVSlotAllocator
+#   contract);
+# * tokens stream out as they are produced (``TokenEvent`` carries a
+#   wall timestamp), and telemetry reports tokens/s plus per-phase
+#   latency percentiles — time-to-first-token, prefill service, decode
+#   step — the serving numbers an on-board LM deployment is sized by.
+
+
+@dataclasses.dataclass(frozen=True)
+class LMRequest:
+    rid: int
+    x: np.ndarray                       # [S, D] prompt window
+    deadline_s: float = 10.0            # completion deadline from submit
+    max_new_tokens: int = 8             # tokens to generate (incl. first)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One streamed token: emitted the moment its dispatch retires."""
+    rid: int
+    index: int                          # 0-based position in the response
+    token: int
+    time: float                         # wall perf_counter timestamp
+    phase: str                          # 'prefill' (first token) | 'decode'
+
+
+@dataclasses.dataclass(frozen=True)
+class LMCompletion:
+    rid: int
+    tokens: Tuple[int, ...]
+    submitted: float
+    first_token_t: float
+    finished: float
+    deadline: float
+
+    @property
+    def ttft_s(self) -> float:
+        return self.first_token_t - self.submitted
+
+    @property
+    def latency_s(self) -> float:
+        return self.finished - self.submitted
+
+    @property
+    def missed_deadline(self) -> bool:
+        return self.finished > self.deadline
+
+
+@dataclasses.dataclass
+class _LMInflight:
+    req: LMRequest
+    slot: int
+    hidden: np.ndarray                  # [D] feedback features
+    tokens: List[int]
+    submitted: float
+    first_token_t: float
+
+
+@dataclasses.dataclass
+class LMTelemetry:
+    n_submitted: int = 0
+    n_completed: int = 0
+    n_tokens: int = 0
+    tokens_per_s: float = 0.0
+    ttft_p50_ms: float = 0.0
+    prefill_p50_ms: float = 0.0         # per-dispatch prefill service
+    decode_step_p50_ms: float = 0.0     # per-dispatch decode service
+    deadline_misses: int = 0
+    n_prefill_dispatches: int = 0
+    n_decode_dispatches: int = 0
+    n_deadline_flushes: int = 0         # ragged prefills a deadline forced
+    mean_prefill_fill: float = 0.0
+    mean_decode_fill: float = 0.0
+    n_slot_assigns: int = 0
+    slot_high_water: int = 0
+    n_traces: int = 0                   # steady-state serving: constant
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def _p50(xs: List[float]) -> float:
+    return float(np.percentile(xs, 50)) if xs else 0.0
+
+
+class LMScheduler:
+    """Prefill/decode scheduler over one :class:`~repro_torch.core.lm.LMEngine`.
+
+    ``prefill_ladder`` rungs are compiled-plan batch sizes (capped at the
+    engine's slot count — a prefill lane needs a slot); ``decode_ladder``
+    rungs are decode-program widths. ``flush_margin`` scales the
+    deadline-flush test: a ragged prefill dispatches once the oldest
+    waiting request's slack drops under ``margin * estimated remaining
+    work``.
+    """
+
+    def __init__(self, lm, prefill_ladder: Optional[Sequence[int]] = None,
+                 decode_ladder: Optional[Sequence[int]] = None,
+                 flush_margin: float = 2.0):
+        self.lm = lm
+        top = lm.n_slots
+        self.prefill_ladder = tuple(
+            prefill_ladder if prefill_ladder is not None
+            else capped_ladder(top))
+        self.decode_ladder = tuple(
+            decode_ladder if decode_ladder is not None
+            else capped_ladder(top, base=(1, 2, 4, 8, 16)))
+        if max(self.prefill_ladder) > top:
+            raise ValueError(
+                f"prefill rung {max(self.prefill_ladder)} exceeds "
+                f"{top} KV slot(s)")
+        self.flush_margin = flush_margin
+        self.waiting: Deque[Tuple[LMRequest, float]] = deque()
+        self.inflight: List[_LMInflight] = []
+        self.completions: List[LMCompletion] = []
+        self.events: List[TokenEvent] = []
+        # EWMA service estimates (seed pessimistically; first dispatches
+        # correct them)
+        self._prefill_ewma = 0.1
+        self._decode_ewma = 0.02
+        self._prefill_times: List[float] = []
+        self._decode_times: List[float] = []
+        self._prefill_fills: List[float] = []
+        self._decode_fills: List[float] = []
+        self._n_flushes = 0
+        self._t_start: Optional[float] = None
+        self._t_end: Optional[float] = None
+
+    # -- submission ----------------------------------------------------------
+
+    def submit(self, req: LMRequest) -> None:
+        if req.x.shape != (self.lm.seq_len, self.lm.d_model):
+            raise ValueError(
+                f"prompt window must be [{self.lm.seq_len}, "
+                f"{self.lm.d_model}], got {req.x.shape}")
+        if req.max_new_tokens > self.lm.max_new_tokens:
+            raise ValueError(
+                f"max_new_tokens {req.max_new_tokens} exceeds the KV "
+                f"plan's decode budget {self.lm.max_new_tokens}")
+        self.waiting.append((req, time.perf_counter()))
+
+    # -- scheduling core -----------------------------------------------------
+
+    def _free_slots(self) -> int:
+        return self.lm.n_slots - self.lm.slots.in_use
+
+    def _rung(self, ladder: Sequence[int], n: int) -> int:
+        """Smallest rung holding ``n`` (the largest rung caps n)."""
+        for r in ladder:
+            if r >= n:
+                return r
+        return max(ladder)
+
+    def _urgent(self, now: float) -> bool:
+        """Deadline-flush test on the oldest waiting request."""
+        if not self.waiting:
+            return False
+        req, sub = self.waiting[0]
+        remaining = (self._prefill_ewma
+                     + req.max_new_tokens * self._decode_ewma)
+        return (sub + req.deadline_s) - now < self.flush_margin * remaining
+
+    def _should_prefill(self, now: float) -> bool:
+        n_admit = min(len(self.waiting), self._free_slots())
+        if n_admit == 0:
+            return False
+        if n_admit >= max(self.prefill_ladder):
+            return True                 # a full top rung never waits
+        if not self.inflight:
+            return True                 # nothing else to run
+        return self._urgent(now)        # ragged tail: only when forced
+
+    def step(self) -> bool:
+        """One scheduling decision (a prefill or a decode dispatch).
+        Returns False when there is nothing left to do."""
+        now = time.perf_counter()
+        if self._t_start is None:
+            self._t_start = now
+        if self._should_prefill(now):
+            self._dispatch_prefill()
+        elif self.inflight:
+            self._dispatch_decode()
+        elif self.waiting:
+            # waiting requests but no free slot and nothing in flight
+            # cannot happen (in-flight requests own the slots) — guard
+            # against a stuck queue anyway
+            raise RuntimeError("waiting requests with no runnable work")
+        else:
+            return False
+        self._t_end = time.perf_counter()
+        return True
+
+    def run(self) -> List[LMCompletion]:
+        """Drive to idle: serve every submitted request to completion."""
+        while self.step():
+            pass
+        return self.completions
+
+    # -- dispatches ----------------------------------------------------------
+
+    def _dispatch_prefill(self) -> None:
+        n_admit = min(len(self.waiting), self._free_slots())
+        rung = self._rung(self.prefill_ladder, n_admit)
+        n_real = min(n_admit, rung)
+        batch: List[Tuple[LMRequest, float]] = [
+            self.waiting.popleft() for _ in range(n_real)]
+        slots = [self.lm.assign_slot(req.rid) for req, _ in batch]
+        x = np.zeros((rung, self.lm.seq_len, self.lm.d_model), np.float32)
+        slot_ids = np.full((rung,), self.lm.scratch_slot, np.int32)
+        for i, (req, _) in enumerate(batch):
+            x[i] = req.x
+            slot_ids[i] = slots[i]
+        t0 = time.perf_counter()
+        res = self.lm.prefill(x, slot_ids)
+        t1 = time.perf_counter()
+        self._prefill_ewma = 0.7 * self._prefill_ewma + 0.3 * (t1 - t0)
+        self._prefill_times.append(t1 - t0)
+        self._prefill_fills.append(n_real / rung)
+        if n_real < rung:
+            self._n_flushes += 1
+        for i, (req, sub) in enumerate(batch):
+            tok = int(res.tokens[i])
+            self.events.append(TokenEvent(req.rid, 0, tok, t1, "prefill"))
+            fl = _LMInflight(req=req, slot=slots[i], hidden=res.hidden[i],
+                             tokens=[tok], submitted=sub, first_token_t=t1)
+            if req.max_new_tokens <= 1:
+                self._retire(fl, t1)
+            else:
+                self.inflight.append(fl)
+
+    def _dispatch_decode(self) -> None:
+        rung = self._rung(self.decode_ladder, len(self.inflight))
+        active = self.inflight[:rung]
+        hidden = np.zeros((rung, self.lm.d_model), np.float32)
+        slot_ids = np.full((rung,), self.lm.scratch_slot, np.int32)
+        for i, fl in enumerate(active):
+            hidden[i] = fl.hidden
+            slot_ids[i] = fl.slot
+        t0 = time.perf_counter()
+        res = self.lm.decode_step(hidden, slot_ids)
+        t1 = time.perf_counter()
+        self._decode_ewma = 0.7 * self._decode_ewma + 0.3 * (t1 - t0)
+        self._decode_times.append(t1 - t0)
+        self._decode_fills.append(len(active) / rung)
+        done: List[_LMInflight] = []
+        for i, fl in enumerate(active):
+            fl.tokens.append(int(res.tokens[i]))
+            fl.hidden = res.hidden[i]
+            self.events.append(TokenEvent(
+                fl.req.rid, len(fl.tokens) - 1, fl.tokens[-1], t1,
+                "decode"))
+            if len(fl.tokens) >= fl.req.max_new_tokens:
+                done.append(fl)
+        for fl in done:
+            self.inflight.remove(fl)
+            self._retire(fl, t1)
+
+    def _retire(self, fl: _LMInflight, t: float) -> None:
+        self.lm.release_slot(fl.req.rid)
+        self.completions.append(LMCompletion(
+            rid=fl.req.rid, tokens=tuple(fl.tokens),
+            submitted=fl.submitted, first_token_t=fl.first_token_t,
+            finished=t, deadline=fl.submitted + fl.req.deadline_s))
+
+    # -- reporting -----------------------------------------------------------
+
+    def telemetry(self) -> LMTelemetry:
+        tel = LMTelemetry()
+        tel.n_submitted = (len(self.completions) + len(self.inflight)
+                           + len(self.waiting))
+        tel.n_completed = len(self.completions)
+        tel.n_tokens = (sum(len(c.tokens) for c in self.completions)
+                        + sum(len(f.tokens) for f in self.inflight))
+        span = ((self._t_end or 0.0) - (self._t_start or 0.0))
+        tel.tokens_per_s = tel.n_tokens / span if span > 0 else 0.0
+        tel.ttft_p50_ms = _p50(
+            [c.ttft_s for c in self.completions]) * 1e3
+        tel.prefill_p50_ms = _p50(self._prefill_times) * 1e3
+        tel.decode_step_p50_ms = _p50(self._decode_times) * 1e3
+        tel.deadline_misses = sum(
+            1 for c in self.completions if c.missed_deadline)
+        tel.n_prefill_dispatches = len(self._prefill_times)
+        tel.n_decode_dispatches = len(self._decode_times)
+        tel.n_deadline_flushes = self._n_flushes
+        tel.mean_prefill_fill = (float(np.mean(self._prefill_fills))
+                                 if self._prefill_fills else 0.0)
+        tel.mean_decode_fill = (float(np.mean(self._decode_fills))
+                                if self._decode_fills else 0.0)
+        tel.n_slot_assigns = self.lm.slots.n_assigns
+        tel.slot_high_water = self.lm.slots.high_water
+        tel.n_traces = self.lm.n_traces
+        return tel
+
+    def summary(self) -> str:
+        tel = self.telemetry()
+        return (
+            f"[lm] {tel.n_completed}/{tel.n_submitted} served  "
+            f"{tel.n_tokens} tokens @ {tel.tokens_per_s:.1f} tok/s  "
+            f"ttft p50={tel.ttft_p50_ms:.2f} ms  "
+            f"prefill p50={tel.prefill_p50_ms:.2f} ms  "
+            f"decode-step p50={tel.decode_step_p50_ms:.2f} ms  "
+            f"misses={tel.deadline_misses}\n"
+            f"     {tel.n_prefill_dispatches} prefill "
+            f"(fill={tel.mean_prefill_fill:.0%}, "
+            f"{tel.n_deadline_flushes} deadline flushes) + "
+            f"{tel.n_decode_dispatches} decode "
+            f"(fill={tel.mean_decode_fill:.0%}) dispatches  "
+            f"slots hw={tel.slot_high_water}/{self.lm.n_slots} "
+            f"assigns={tel.n_slot_assigns}  traces={tel.n_traces}")

@@ -16,6 +16,10 @@
 //   * the last block to finish an (nt, mt) tile, found with a per-tile
 //     ticket counter, applies the epilogue to that tile. One launch per
 //     layer; the caller passes a zeroed [M*N + tiles] int32 scratch buffer.
+// Every index into [M, N] is 64-bit: the LM's per-position projections fold
+// batch x positions into M, and M * N passes 2^31 (B = 16, S = 4096 and a
+// 32000-word head is 2.1 G). M / 16 rides on gridDim.z, which caps it at
+// 65,535 tiles; the wrapper refuses a larger M before launching.
 #include "common.cuh"
 
 constexpr int kBN = 128;   // threads per block = output columns per block
@@ -64,7 +68,8 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int mm = 0; mm < kMT; ++mm) {
       const int m = m0 + mm;
-      if (m < M && a[mm] != 0) atomicAdd(&acc[m * N + n], a[mm]);
+      if (m < M && a[mm] != 0)
+        atomicAdd(&acc[static_cast<long long>(m) * N + n], a[mm]);
     }
   }
 

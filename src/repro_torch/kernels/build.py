@@ -35,6 +35,8 @@ SOURCES = {
     "quantize_apply": "quantize.cu",
     "int8_matmul": "int8_matmul.cu",
     "conv2d_int8": "conv2d_int8.cu",
+    "flash_attention": "flash_attention.cu",
+    "ssd": "ssd.cu",
 }
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -9,6 +9,9 @@ below the card's int8 rate. The TPU kernel carried its accumulator over a
 sequential K grid axis; the CUDA kernel splits K across blocks instead,
 adds int32 partials atomically (exact, order-free), and the last block of
 each output tile applies the epilogue, so a layer is still one launch.
+The LM's per-position projections fold batch x positions into M (8192 at
+a B=4 prefill), where this design is far from its bound; indices into
+[M, N] are 64-bit, and M is capped by the grid (``MAX_GRID_Z`` row tiles).
 
 Epilogue: ``fma((f32(acc) * x_scale[m]), w_scale[n], bias[n])`` (one
 rounding for the bias add, as the reference's backend computes it), then
@@ -28,6 +31,9 @@ from repro_torch.kernels.epilogue import (apply_epilogue, dequant_bias,
 
 # launches of the CUDA kernel (the plain version does not count)
 launches = 0
+
+ROWS_PER_BLOCK = 16             # the kernel's row tile (kMT)
+MAX_GRID_Z = 65535              # CUDA's gridDim.z cap: row tiles per launch
 
 _ACT_CODE = {None: 0, "relu": 1, "sigmoid": 2}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
@@ -91,6 +97,11 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                                 requant_scale)
         return out.to(out_dtype)
     global launches
+    if -(-m // ROWS_PER_BLOCK) > MAX_GRID_Z:
+        raise ValueError(
+            f"int8_matmul: M={m} needs {-(-m // ROWS_PER_BLOCK)} row tiles "
+            f"of {ROWS_PER_BLOCK}; one launch takes at most {MAX_GRID_Z} "
+            f"(M <= {ROWS_PER_BLOCK * MAX_GRID_Z})")
     x_q, w_q = x_q.contiguous(), w_q.contiguous()
     x_scale = x_scale.float().contiguous()
     w_scale = w_scale.float().contiguous()

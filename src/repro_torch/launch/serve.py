@@ -9,6 +9,12 @@ first); under ``--power-budget WATTS`` dispatch becomes energy-aware and
 falls back to the cheaper-power backends when the envelope refuses the
 primary.
 
+``--mode lm`` serves the telemetry LM's decoder block instead (the
+reference's compiled LM path, ``serve_lm_compiled``): PTQ calibration,
+the compiled prefill ladder and per-rung decode programs over static int8
+KV slots, driven by the LM scheduler. ``--requests`` prompts of
+``--tokens`` new tokens each share ``--slots`` KV slots.
+
 Runs on the card; ``--device cpu`` runs every kernel's plain PyTorch
 version on the CPU instead.
 
@@ -16,6 +22,8 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode space \\
         --model cnet_plus_scalar --backend accel --requests 48 --batch 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+        --backend accel --requests 8 --tokens 16 --slots 4
 """
 from __future__ import annotations
 
@@ -116,9 +124,56 @@ def serve_space(args) -> int:
     return 0
 
 
+def build_lm_scheduler(args, cfg=None) -> tuple:
+    """The LM path's set-up: the decoder block at ``cfg`` (the reference's
+    small default when None) with seeded weights, PTQ calibration on 8
+    synthetic windows for ``accel``, the :class:`LMEngine` over
+    ``args.slots`` KV slots, and an :class:`LMScheduler` holding
+    ``args.requests`` submitted prompts. Returns ``(scheduler, engine)``."""
+    from repro_torch.core.lm import LMEngine
+    from repro_torch.core.scheduler import LMRequest, LMScheduler
+    from repro_torch.models import lm as lm_model
+
+    cfg = lm_model.DEFAULT_CONFIG if cfg is None else cfg
+    backend = args.backend.split(",")[0].strip()
+    if backend not in BACKENDS:
+        raise SystemExit(f"unknown backend {backend!r}; choose from "
+                         f"{', '.join(BACKENDS)}")
+    graph = lm_model.build_graph(cfg)
+    engine = Engine(graph, lm_model.init_params(0, cfg), device=args.device)
+    if backend == "accel":
+        rng = np.random.default_rng(1)
+        engine.calibrate([lm_model.synthetic_input(rng, cfg)
+                          for _ in range(8)])
+    tokens = max(args.tokens, 1)
+    lm = LMEngine(engine, backend=backend, n_slots=args.slots,
+                  max_new_tokens=tokens)
+    print(lm.plan.summary())
+    sched = LMScheduler(lm)
+    rng = np.random.default_rng(7)
+    for rid in range(args.requests):
+        sched.submit(LMRequest(
+            rid=rid,
+            x=rng.normal(size=(cfg.seq_len, cfg.d_model)
+                         ).astype(np.float32) * 0.5,
+            max_new_tokens=tokens))
+    return sched, lm
+
+
+def serve_lm_compiled(args, cfg=None) -> int:
+    """The scheduler-native LM path: serve every submitted prompt to
+    completion and report; exit code 1 unless all completed."""
+    sched, _ = build_lm_scheduler(args, cfg)
+    comps = sched.run()
+    print(sched.summary())
+    sample = comps[0].tokens[:16] if comps else ()
+    print(f"[lm] sample continuation: {list(sample)}")
+    return 0 if len(comps) == args.requests else 1
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="space", choices=["space"])
+    ap.add_argument("--mode", default="space", choices=["space", "lm"])
     ap.add_argument("--model", default="cnet_plus_scalar",
                     help="comma list of space models to co-serve "
                          f"({', '.join(sorted(SPACE_MODELS))})")
@@ -131,6 +186,10 @@ def parser() -> argparse.ArgumentParser:
                          "the kernels' plain versions)")
     ap.add_argument("--requests", type=int, default=64,
                     help="requests per model")
+    ap.add_argument("--tokens", type=int, default=32,
+                    help="--mode lm: new tokens per request")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="--mode lm: KV-cache slots (the top prefill rung)")
     ap.add_argument("--batch", type=int, default=16,
                     help="top batch-ladder rung")
     ap.add_argument("--rate", type=float, default=256.0,
@@ -162,7 +221,10 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    return serve_space(parser().parse_args(argv))
+    args = parser().parse_args(argv)
+    if args.mode == "lm":
+        return serve_lm_compiled(args)
+    return serve_space(args)
 
 
 if __name__ == "__main__":

@@ -30,9 +30,10 @@ def _normal(rng: np.random.Generator, shape, std: float) -> torch.Tensor:
 
 def init_graph_params(g: Graph, seed: int
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """He-normal conv weights (HWIO) and LeCun-normal dense weights
-    ([K, N]), zero biases, drawn in graph order from ``seed``. CPU
-    tensors: the engine moves them to its device."""
+    """He-normal conv weights (HWIO), LeCun-normal dense weights ([K, N]),
+    zero biases and SSD decay rates ``A = -uniform(0.5, 1.5)`` per head,
+    drawn in graph order from ``seed``. CPU tensors: the engine moves
+    them to its device."""
     rng = np.random.default_rng(seed)
     params: Dict[str, Dict[str, torch.Tensor]] = {}
     for name in g.order:
@@ -55,6 +56,12 @@ def init_graph_params(g: Graph, seed: int
             if node.attrs.get("bias", True):
                 p["b"] = torch.zeros(fout)
             params[name] = p
-        elif node.op in ("conv3d", "ssd"):
+        elif node.op == "ssd":
+            # per-head decay rate A [H], negative so exp(dt*A) < 1 for
+            # dt > 0 (bounded state): the Mamba-2 initialization range
+            h = int(g.nodes[node.inputs[0]].out_shape[-2])
+            params[name] = {"A": torch.from_numpy(
+                -rng.uniform(0.5, 1.5, size=(h,)).astype(np.float32))}
+        elif node.op == "conv3d":
             raise NotImplementedError(f"no init for {node.op} in the port yet")
     return params

@@ -1,8 +1,13 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, and the engine and scheduler on the card against the same engine
-on the CPU. Bit-exact throughout, except sigmoid (1e-6 relative: the
-kernel's expf and PyTorch's sigmoid may differ by an ulp) and the fp32
-flex path (1e-4: cuDNN and the CPU convolution sum in different orders).
+on the CPU. The int8 kernels are bit-exact, except sigmoid (1e-6
+relative: the kernel's expf and PyTorch's sigmoid may differ by an ulp);
+the fp32 flex path agrees to 1e-4 (cuDNN and the CPU convolution sum in
+different orders). The fp32 LM kernels sum in another order than their
+plain versions (cuBLAS products, a softmax over whole rows, torch.cumsum)
+and use the card's expf: flash attention is held to 2e-5 and the SSD scan
+to 1e-4, the reference's own kernel-vs-reference tolerances
+(tests/test_kernels.py, tests/test_ssd_kernel.py).
 
 Every test here needs a CUDA card and is marked ``gpu``; without a card
 they skip. This file imports nothing of the JAX reference, so it runs on
@@ -16,11 +21,15 @@ import torch
 
 from repro_torch.core.engine import Engine
 from repro_torch.core.scheduler import ContinuousBatchingScheduler
+from repro_torch.core.lm import LMEngine
 from repro_torch.kernels import conv2d as tconv
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import int8_matmul as tmm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quantize as tquant
+from repro_torch.kernels import ssd as tssd
 from repro_torch.models import cnet_plus_scalar as tcnet
+from repro_torch.models import lm as tlm
 
 pytestmark = pytest.mark.gpu
 
@@ -33,6 +42,8 @@ def cuda_device():
     """The card, or a skip: decided when the test runs, never at import."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m gpu on the GPU machine)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -122,7 +133,8 @@ def test_card_engine_matches_cpu_engine(cuda_device, cpu_engine):
     kops.reset_launch_counts()
     got = card.run_batch(batch, "accel")["head"].cpu()
     assert kops.launch_counts() == {"int8_matmul": 2, "conv2d_int8": 3,
-                                    "quantize_apply": 0}
+                                    "quantize_apply": 0,
+                                    "flash_attention": 0, "ssd": 0}
     assert torch.equal(got, cpu_engine.run_batch(batch, "accel")["head"])
     torch.testing.assert_close(
         card.run_batch(batch, "flex")["head"].cpu(),
@@ -146,3 +158,145 @@ def test_card_scheduler_matches_cpu_outputs(cuda_device, cpu_engine):
     for c in s.completions:
         want = cpu_engine.run(reqs[c.rid], "accel")["head"].numpy()
         np.testing.assert_array_equal(c.outputs["head"], want)
+
+
+def test_int8_matmul_indexes_past_2_to_the_31(cuda_device):
+    """M * N just past 2^31 (M = 65,600, N = 32,768): rows at both ends
+    against the plain version on the same rows (rows are independent)."""
+    g = torch.Generator().manual_seed(31)
+    m, k, n = 65_600, 8, 32_768
+    x = torch.randint(-127, 128, (m, k), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    w = torch.randint(-127, 128, (k, n), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    xs = (torch.rand(m, generator=g) * 0.01 + 1e-3).to(cuda_device)
+    ws = (torch.rand(n, generator=g) * 0.01 + 1e-3).to(cuda_device)
+    got = tmm.int8_matmul(x, w, xs, ws)
+    torch.cuda.synchronize()
+    assert m * n > 2 ** 31
+    for rows in (slice(0, 64), slice(m - 64, m)):
+        want = tmm.int8_matmul_plain(x[rows], w, xs[rows], ws)
+        assert torch.equal(got[rows], want)
+    del got
+
+
+FLASH_CASES = [
+    # b, sq, sk, hq, hkv, hd, causal
+    (2, 37, 37, 4, 2, 8, True),          # GQA, ragged
+    (2, 37, 37, 4, 2, 8, False),
+    (1, 130, 130, 2, 2, 16, True),
+    (1, 64, 100, 4, 1, 64, True),        # Sq < Sk
+    (1, 100, 64, 4, 1, 64, False),       # Sq > Sk
+    (2, 256, 256, 8, 8, 64, True),
+    (1, 70, 70, 2, 1, 128, True),        # the hd <= 128 instantiation
+    (1, 65, 65, 2, 2, 100, False),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,hd,causal", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, hq,
+                                             hkv, hd, causal):
+    g = torch.Generator().manual_seed(sq + sk + hd)
+    q = torch.randn((b, sq, hq, hd), generator=g).to(cuda_device)
+    k = torch.randn((b, sk, hkv, hd), generator=g).to(cuda_device)
+    v = torch.randn((b, sk, hkv, hd), generator=g).to(cuda_device)
+    before = tflash.launches
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 1
+    want = tflash.flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda_device):
+    """q/k/v as views into one [B, S, 3, H, hd] buffer: read in place."""
+    g = torch.Generator().manual_seed(5)
+    qkv = torch.randn((2, 50, 3, 4, 16), generator=g).to(cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    got = tflash.flash_attention(q, k, v, causal=True)
+    want = tflash.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+SSD_CASES = [
+    # b, s, h, p, n, chunk, init
+    (2, 64, 3, 8, 16, 16, False),
+    (2, 96, 2, 8, 8, 64, True),          # chunk falls back to 48
+    (1, 300, 2, 64, 64, 256, False),     # 150: not a multiple of 64
+    (1, 512, 4, 64, 64, 256, True),
+    (1, 128, 2, 16, 128, 64, False),     # the N <= 128 instantiation
+    (2, 37, 2, 8, 8, 256, True),         # prime S: one chunk of 37
+]
+
+
+def _ssd_inputs(b, s, h, p, n, init, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g)
+    B_ = torch.randn((b, s, n), generator=g)
+    C_ = torch.randn((b, s, n), generator=g)
+    dt = torch.rand((b, s, h), generator=g) * 0.5 + 0.05
+    A = -(torch.rand(h, generator=g) + 0.5)
+    st = torch.randn((b, h, p, n), generator=g) if init else None
+    return [None if t is None else t.to(device)
+            for t in (x, B_, C_, dt, A, st)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk, init):
+    x, B_, C_, dt, A, st = _ssd_inputs(b, s, h, p, n, init, s + n,
+                                       cuda_device)
+    before = tssd.launches
+    y, fin = tssd.ssd(x, B_, C_, dt, A, st, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tssd.launches == before + 1
+    y_p, fin_p = tssd.ssd_plain(x, B_, C_, dt, A, st, chunk)
+    torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fin, fin_p, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_carries_init_state(cuda_device):
+    """Two halves with the carried state equal one run over the whole."""
+    x, B_, C_, dt, A, _ = _ssd_inputs(1, 512, 2, 64, 64, False, 9,
+                                      cuda_device)
+    y, fin = tssd.ssd(x, B_, C_, dt, A, chunk=128)
+    y1, st = tssd.ssd(x[:, :256], B_[:, :256], C_[:, :256], dt[:, :256], A,
+                      chunk=128)
+    y2, fin2 = tssd.ssd(x[:, 256:], B_[:, 256:], C_[:, 256:], dt[:, 256:],
+                        A, st, chunk=128)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(fin2, fin, rtol=1e-4, atol=1e-4)
+
+
+def test_card_lm_engine_matches_cpu_engine(cuda_device):
+    """The small LM block on the card against the CPU engine with the same
+    weights and calibration: prefill K/V cache codes and scales bit-exact
+    (exact int8 projections), logits within 1e-4, and the kernels
+    launched once per prefill, never in decode."""
+    cfg = tlm.DEFAULT_CONFIG
+    graph = tlm.build_graph(cfg)
+    cpu = Engine(graph, tlm.init_params(0, cfg), device="cpu")
+    rng = np.random.default_rng(1)
+    cpu.calibrate([tlm.synthetic_input(rng, cfg) for _ in range(4)])
+    card = Engine(graph, cpu.params, device=cuda_device)
+    card.share_calibration(cpu)
+    lm_c = LMEngine(cpu, "accel", n_slots=2, max_new_tokens=4)
+    lm_g = LMEngine(card, "accel", n_slots=2, max_new_tokens=4)
+    x = tlm.synthetic_batch(np.random.default_rng(3), 2, cfg)["x"]
+    slots = np.array([0, 1], np.int32)
+    kops.reset_launch_counts()
+    rc, rg = lm_c.prefill(x, slots), lm_g.prefill(x, slots)
+    counts = kops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["ssd"] == 1
+    assert counts["int8_matmul"] == len(lm_g.plan.qplans)
+    for w in ("k_codes", "k_scale", "v_codes", "v_scale"):
+        assert torch.equal(lm_g.caches["attn"][w].cpu(),
+                           lm_c.caches["attn"][w])
+    np.testing.assert_allclose(rg.hidden, rc.hidden, rtol=1e-4, atol=1e-4)
+    kops.reset_launch_counts()
+    lm_g.decode_step(rg.hidden, slots)
+    counts = kops.launch_counts()
+    assert counts["flash_attention"] == 0 and counts["ssd"] == 0
+    assert counts["int8_matmul"] == len(lm_g.plan.qplans)

@@ -7,7 +7,7 @@
   the ``repro.`` -> ``repro_torch.`` rewrite, so any drift is deliberate;
 * entry points need a card unless the caller asks for the CPU, and
   ``chip_smoke.py`` fails (printing no verdict) without one;
-* the launcher accepts only the flags this slice supports.
+* the launcher accepts only the flags the ported slices support.
 """
 import ast
 import pkgutil
@@ -35,9 +35,15 @@ def _port_modules():
         repro_torch.__path__, "repro_torch."))
 
 
+LM_SLICE = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd",
+            "repro_torch.core.lm_quant", "repro_torch.core.lm",
+            "repro_torch.models.lm")
+
+
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
-    assert "repro_torch.core.scheduler" in mods and len(mods) >= 20
+    assert "repro_torch.core.scheduler" in mods and len(mods) >= 25
+    assert set(LM_SLICE) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -103,11 +109,23 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--fault-rate", "1"], ["--radiation", "orbit"], ["--autotune"],
-    ["--checkpoint", "x.npz"], ["--mode", "lm"], ["--trace-demo"]])
+    ["--checkpoint", "x.npz"], ["--lm-legacy"], ["--trace-demo"],
+    ["--arch", "tinyllama-1.1b"], ["--kv8"], ["--w8"]])
 def test_launcher_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve.parser().parse_args(flag)
     assert e.value.code == 2
+
+
+def test_lm_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = serve.parser().parse_args(["--mode", "lm", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_lm_scheduler(args)
+    args = serve.parser().parse_args(["--mode", "lm", "--requests", "1",
+                                      "--device", "cpu", "--backend", "dpu"])
+    with pytest.raises(SystemExit):
+        serve.build_lm_scheduler(args)
 
 
 def test_launcher_rejects_bad_lists_and_envelope_flags():

@@ -116,6 +116,19 @@ def test_int8_matmul_rejects_bad_operands():
         normalize_act(True, "relu")
 
 
+def test_int8_matmul_refuses_more_row_tiles_than_grid_z(monkeypatch):
+    """The kernel puts M/16 row tiles on gridDim.z (at most 65,535): a
+    larger M is refused with a clear error before anything launches."""
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(build, "library", lambda name: pytest.fail(
+        "reached the launch"))
+    m = tmm.ROWS_PER_BLOCK * tmm.MAX_GRID_Z + 1
+    x = torch.zeros((m, 1), dtype=torch.int8)
+    with pytest.raises(ValueError, match="row tiles"):
+        tmm.int8_matmul(x, torch.zeros((1, 2), dtype=torch.int8),
+                        torch.ones(m), torch.ones(2))
+
+
 def test_heuristic_blocks_copy():
     from repro.kernels.int8_matmul import heuristic_blocks as jhb
     for m, k, n in [(1, 5, 3), (16, 32769, 92), (200, 128, 1), (129, 7, 64)]:
@@ -239,8 +252,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                      torch.zeros((3, 3, 2, 5), dtype=torch.int8),
                      torch.ones(5))
     tops.quantize(torch.randn(7, 3))
+    q = torch.randn(1, 5, 2, 8)
+    tops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    tops.ssd(torch.randn(1, 6, 2, 4), torch.randn(1, 6, 3),
+             torch.randn(1, 6, 3), torch.rand(1, 6, 2), -torch.rand(2))
     assert tops.launch_counts() == {"int8_matmul": 0, "conv2d_int8": 0,
-                                    "quantize_apply": 0}
+                                    "quantize_apply": 0,
+                                    "flash_attention": 0, "ssd": 0}
 
 
 def test_other_devices_are_refused():
