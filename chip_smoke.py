@@ -14,7 +14,18 @@ functions:
 * the telemetry LM's decoder block at zamba2-1.2b widths on ``accel``
   through the LM scheduler (8 requests of 16 tokens over 4 KV slots),
   with the per-dispatch launch counts checked, then one request's prefill
-  and 4 decode steps held against the port's CPU engine.
+  and 4 decode steps held against the port's CPU engine;
+* cnet_plus_scalar again with ``--autotune --tuning-cache``: the same
+  trace served through the plan-time autotuner (prepacked weights, the
+  stem's channel-blocked conv grid), bit-identical to the untuned served
+  outputs, then a second engine over the saved cache that must search
+  nothing;
+* the LM block autotuned at zamba2 widths: one request's prefill and 4
+  decode steps held against the untuned engine's on the card.
+
+Besides the kernels those paths run, the fp32 ``conv2d`` (on no served
+path, as in the reference) is held against its plain version and timed
+beside cuDNN's convolution.
 
 The launch counters show that each path ran its kernels (counts are set
 to 0 just before a path is driven and read just after); a profiler pass
@@ -27,8 +38,10 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -55,6 +68,19 @@ LM_LOGITS_ATOL = 2e-2
 # the kernels each served path must launch
 CNN_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply")
 LM_KERNELS = ("int8_matmul", "quantize_apply", "flash_attention", "ssd")
+TUNED_CNN_KERNELS = ("int8_matmul", "conv2d_int8", "conv2d_int8_cout_blocks",
+                     "quantize_apply")
+TUNED_LM_KERNELS = ("int8_matmul", "flash_attention", "ssd")
+# every pallas_call of the reference has one record in the kernels line
+TPU_KERNELS = {
+    "int8_matmul": "src/repro/kernels/int8_matmul.py:136",
+    "quantize_apply": "src/repro/kernels/quantize.py:49",
+    "conv2d_int8": "src/repro/kernels/conv2d.py:284",
+    "conv2d_int8_cout_blocks": "src/repro/kernels/conv2d.py:303",
+    "flash_attention": "src/repro/kernels/flash_attention.py:115",
+    "ssd": "src/repro/kernels/ssd.py:100",
+    "conv2d": "src/repro/kernels/conv2d.py:141",
+}
 
 FAILURES = []
 
@@ -204,18 +230,27 @@ def _print_case(c):
 
 
 @phase("int8_matmul vs plain (CNet fc1 and head at B=16; the LM's emb, "
-       "prefill head at B=4 x 2048 positions and decode head at 4 lanes)")
+       "prefill head at B=4 x 2048 positions and decode head at 4 lanes; "
+       "prepacked: fc1 and head in their tuned layouts, the LM head at one "
+       "prompt)")
 def matmul_phase(torch, gen, flush):
     from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels.epilogue import pad_channel_params
     dev = "cuda"
     cases = []
-    # (M, K, N, act, requant): fc1 = dense+relu+requant, head = dense; the
-    # LM's per-position projections fold batch x positions into M
-    for m, k, n, act, rq in ((BATCH, 32769, 92, "relu", 0.0123456789),
-                             (BATCH, 92, 1, None, None),
-                             (4 * 2048, 2048, 2048, None, 0.0153),
-                             (4 * 2048, 2048, 32000, None, None),
-                             (LM_SLOTS, 2048, 32000, None, None)):
+    # (M, K, N, act, requant, packed layout (bk, bn) or None): fc1 =
+    # dense+relu+requant, head = dense; the LM's per-position projections
+    # fold batch x positions into M. The layouts are the autotuner's picks
+    # for these nodes (printed by the served autotuned paths below).
+    for m, k, n, act, rq, layout in (
+            (BATCH, 32769, 92, "relu", 0.0123456789, None),
+            (BATCH, 92, 1, None, None, None),
+            (4 * 2048, 2048, 2048, None, 0.0153, None),
+            (4 * 2048, 2048, 32000, None, None, None),
+            (LM_SLOTS, 2048, 32000, None, None, None),
+            (BATCH, 32769, 92, "relu", 0.0123456789, (1024, 96)),
+            (BATCH, 92, 1, None, None, (96, 8)),
+            (2048, 2048, 32000, None, None, (1024, 256))):
         big = m * n > 1 << 24
         x = torch.randint(-127, 128, (m, k), generator=gen,
                           dtype=torch.int8).to(dev)
@@ -224,34 +259,51 @@ def matmul_phase(torch, gen, flush):
         xs = (torch.rand(m, generator=gen) * 0.01 + 1e-3).to(dev)
         ws = (torch.rand(n, generator=gen) * 0.01 + 1e-3).to(dev)
         b = torch.randn(n, generator=gen).to(dev)
-        out = mm.int8_matmul(x, w, xs, ws, b, act=act, requant_scale=rq)
+        if layout is None:
+            wk, wsk, bk_ = w, ws, b
+            tiles = {}
+        else:
+            bk, bn = layout
+            kp, np_ = -(-k // bk) * bk, -(-n // bn) * bn
+            wk = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+            wsk, bk_ = pad_channel_params(ws, b, np_ - n)
+            tiles = dict(bm=BATCH, bn=bn, bk=bk, prepacked=True, n_out=n)
+        out = mm.int8_matmul(x, wk, xs, wsk, bk_, act=act, requant_scale=rq,
+                             **tiles)
         torch.cuda.synchronize()
         ref = mm.int8_matmul_plain(x, w, xs, ws, b, act, rq)
         err = exact(torch, out, ref)
         t = device_ms(torch, lambda: mm.int8_matmul(
-            x, w, xs, ws, b, act=act, requant_scale=rq), 10 if big else 50,
-            flush)
+            x, wk, xs, wsk, bk_, act=act, requant_scale=rq, **tiles),
+            10 if big else 50, flush)
         tp = device_ms(torch, lambda: mm.int8_matmul_plain(
             x, w, xs, ws, b, act, rq), 3 if big else 10, flush)
         # torch._int_mm (int8 x int8 -> int32, matmul only, no epilogue)
         # needs M > 16 and K, N multiples of 8: time it on the shape
         # rounded up to what it accepts
-        mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
-        xl = torch.zeros((mp, kp), dtype=torch.int8, device=dev)
-        wl = torch.zeros((kp, np_), dtype=torch.int8, device=dev)
+        mp, kp8, np8 = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+        xl = torch.zeros((mp, kp8), dtype=torch.int8, device=dev)
+        wl = torch.zeros((kp8, np8), dtype=torch.int8, device=dev)
         xl[:m, :k], wl[:k, :n] = x, w
         tl = library_ms(torch, xl, wl, flush)
         del xl, wl
         out_bytes = m * n * (1 if rq is not None else 4)
+        # bytes the function must move: the logical operands (x, the
+        # [k, n] weights, the scales and bias) and the output; the zeros of
+        # a packed layout are read by neither the function nor the kernel
         nbytes = m * k + k * n + 4 * (m + 2 * n) + out_bytes
         bms, by = bound_ms(nbytes, 2.0 * m * k * n, PEAK_INT8_OPS_S)
+        packed = ("" if layout is None else
+                  f" prepacked [{wk.shape[0]},{wk.shape[1]}] (bk={layout[0]}"
+                  f", bn={layout[1]})")
         cases.append(dict(shape=f"[{m},{k}]x[{k},{n}] act={act} requant="
-                          f"{rq is not None}", err=err, ms=t, plain_ms=tp,
-                          library_ms=tl, bound_ms=bms, bound_by=by))
+                          f"{rq is not None}{packed}", err=err, ms=t,
+                          plain_ms=tp, library_ms=tl, bound_ms=bms,
+                          bound_by=by))
         _print_case(cases[-1])
     print("   library_ms: torch._int_mm on [17+,K8]x[K8,N8], the matmul only")
     return _kernel_record("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
-                          "src/repro/kernels/int8_matmul.py:136", cases)
+                          TPU_KERNELS["int8_matmul"], cases)
 
 
 @phase("conv2d_int8 vs plain (conv0/1/2 at B=16)")
@@ -291,7 +343,119 @@ def conv_phase(torch, gen, flush):
               f"{cv.smem_bytes(cin, cout, 3, 3, 1)} B")
     print("   library_ms: none (PyTorch has no int8 convolution on CUDA)")
     return _kernel_record("conv2d_int8", "src/repro_torch/csrc/conv2d_int8.cu",
-                          "src/repro/kernels/conv2d.py:284", cases)
+                          TPU_KERNELS["conv2d_int8"], cases)
+
+
+@phase("conv2d_int8_cout_blocks vs plain (CNet act0 as tuned: B=16, "
+       "256x256x2 -> 48, rows 256, pre-padded, bc 16; a 3x3x128 -> 512 "
+       "filter on 32x32 that one block cannot hold whole, bc 64)")
+def conv_blocks_phase(torch, gen, flush):
+    from repro_torch.kernels import conv2d as cv
+    dev = "cuda"
+    cases = []
+    # (B, H, W, Cin, Cout, bc, rows, requant, pre-padded)
+    for b, h, w_, cin, cout, bc, rows, rq, pre in (
+            (BATCH, 256, 256, 2, 48, 16, 256, 0.02, True),
+            (BATCH, 32, 32, 128, 512, 64, 8, 0.02, False)):
+        x = torch.randint(-127, 128, (b, h, w_, cin), generator=gen,
+                          dtype=torch.int8).to(dev)
+        w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
+                          dtype=torch.int8).to(dev)
+        ws = (torch.rand(cout, generator=gen) * 0.01).to(dev)
+        bias = torch.randn(cout, generator=gen).to(dev)
+        kw = dict(x_scale=0.00876, stride=1, padding="SAME", act="relu",
+                  requant_scale=rq, rows_per_block=rows)
+        whole = cv.smem_bytes(cin, cout, 3, 3, 1)
+        if whole > 232448:
+            try:
+                cv.conv2d_int8(x, w, ws, bias, **kw)
+            except ValueError as e:
+                print(f"   whole-Cout refused as it must: {e}")
+            else:
+                raise AssertionError("a filter over the shared-memory "
+                                     "limit was not refused")
+        if pre:
+            g = cv.conv_geometry(h, w_, 3, 3, 1, "SAME", rows)
+            xk = cv.pad_input(x, g)
+            kw_k = dict(kw, pre_padded=True, in_hw=(h, w_))
+        else:
+            xk, kw_k = x, kw
+        before = cv.launches_cout_blocks
+        out = cv.conv2d_int8(xk, w, ws, bias, cout_per_block=bc, **kw_k)
+        torch.cuda.synchronize()
+        assert cv.launches_cout_blocks == before + 1
+        ref = cv.conv2d_int8_plain(xk, w, ws, bias, **kw_k)
+        err = exact(torch, out, ref)
+        t = device_ms(torch, lambda: cv.conv2d_int8(
+            xk, w, ws, bias, cout_per_block=bc, **kw_k), 30, flush)
+        tp = device_ms(torch, lambda: cv.conv2d_int8_plain(
+            xk, w, ws, bias, **kw_k), 5, flush)
+        out_bytes = b * h * w_ * cout * (1 if rq is not None else 4)
+        # the logical input, not the pre-padded copy the kernel reads
+        nbytes = x.numel() + w.numel() + 8 * cout + out_bytes
+        ops = 2.0 * b * h * w_ * cout * 9 * cin
+        bms, by = bound_ms(nbytes, ops, PEAK_INT8_OPS_S)
+        cases.append(dict(shape=f"[{b},{h},{w_},{cin}]->{cout} bc={bc} "
+                          f"rows={rows} pre_padded={pre}", err=err, ms=t,
+                          plain_ms=tp, library_ms=None, bound_ms=bms,
+                          bound_by=by))
+        _print_case(cases[-1])
+        print(f"     dynamic shared memory per block: "
+              f"{cv.smem_bytes(cin, bc, 3, 3, 1)} B with channel blocks, "
+              f"{whole} B whole-Cout; {-(-cout // bc)} channel blocks")
+    print("   library_ms: none (PyTorch has no int8 convolution on CUDA)")
+    return _kernel_record("conv2d_int8_cout_blocks",
+                          "src/repro_torch/csrc/conv2d_int8.cu",
+                          TPU_KERNELS["conv2d_int8_cout_blocks"], cases)
+
+
+@phase("conv2d (fp32) vs plain (the VAE stem: B=16, 128x256x3 -> 8, "
+       "stride 2; CNet's stem in fp32: B=16, 256x256x2 -> 48)")
+def conv_f32_phase(torch, gen, flush):
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv2d as cv
+    dev = "cuda"
+    cases = []
+    # (B, H, W, Cin, Cout, stride)
+    for b, h, w_, cin, cout, stride in ((BATCH, 128, 256, 3, 8, 2),
+                                        (BATCH, 256, 256, 2, 48, 1)):
+        x = torch.randn((b, h, w_, cin), generator=gen).to(dev)
+        w = (torch.randn((3, 3, cin, cout), generator=gen) * 0.1).to(dev)
+        bias = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        kw = dict(stride=stride, padding="SAME", relu=True)
+        before = cv.launches_f32
+        out = cv.conv2d(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        assert cv.launches_f32 == before + 1
+        err = close(torch, out, cv.conv2d_plain(x, w, bias, **kw), 1e-4)
+        t = device_ms(torch, lambda: cv.conv2d(x, w, bias, **kw), 30, flush)
+        tp = device_ms(torch, lambda: cv.conv2d_plain(x, w, bias, **kw), 5,
+                       flush)
+        # the yardstick: cuDNN through F.conv2d, channels-last, TF32 off,
+        # on the input padded beforehand (SAME is asymmetric here)
+        g = cv.conv_geometry(h, w_, 3, 3, stride, "SAME")
+        xl = cv.pad_input(x, g).permute(0, 3, 1, 2)       # NHWC memory
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = F.relu(F.conv2d(xl, wl, bias, stride=stride)).permute(
+            0, 2, 3, 1)
+        close(torch, lib, out, 1e-4)
+        tl = device_ms(torch, lambda: F.conv2d(xl, wl, bias, stride=stride),
+                       30, flush)
+        nbytes = 4 * (x.numel() + w.numel() + cout + out.numel())
+        ops = 2.0 * out.numel() * 9 * cin
+        bms, by = bound_ms(nbytes, ops, PEAK_FP32_OPS_S)
+        cases.append(dict(shape=f"[{b},{h},{w_},{cin}]->{cout} stride "
+                          f"{stride}", err=err, ms=t, plain_ms=tp,
+                          library_ms=tl, bound_ms=bms, bound_by=by))
+        _print_case(cases[-1])
+        print(f"     {cv.f32_block_channels(cin, cout, 3, 3, stride)} "
+              f"output channels per block")
+    print("   tolerance 1e-4 (abs and rel) against the plain version; "
+          "library_ms: F.conv2d with bias (cuDNN, TF32 off, no relu) on the "
+          "pre-padded channels-last input")
+    return _kernel_record("conv2d", "src/repro_torch/csrc/conv2d_f32.cu",
+                          TPU_KERNELS["conv2d"], cases)
 
 
 @phase("quantize_apply vs plain (the five CNet weight matrices)")
@@ -315,7 +479,7 @@ def quantize_phase(torch, gen, flush):
         _print_case(cases[-1])
     print("   library_ms: none")
     return _kernel_record("quantize_apply", "src/repro_torch/csrc/quantize.cu",
-                          "src/repro/kernels/quantize.py:49", cases)
+                          TPU_KERNELS["quantize_apply"], cases)
 
 
 def _causal_pairs(sq: int, sk: int) -> int:
@@ -363,7 +527,7 @@ def flash_phase(torch, gen, flush):
           "library_ms: F.scaled_dot_product_attention fp32 on [B,H,S,hd]")
     return _kernel_record("flash_attention",
                           "src/repro_torch/csrc/flash_attention.cu",
-                          "src/repro/kernels/flash_attention.py:115", cases)
+                          TPU_KERNELS["flash_attention"], cases)
 
 
 @phase("ssd vs plain (the LM's prefill shape, S not a multiple of the "
@@ -430,11 +594,11 @@ def ssd_phase(torch, gen, flush):
     print("   tolerance 1e-4 (abs and rel) against the plain version; "
           "library_ms: none (PyTorch has no SSD scan)")
     return _kernel_record("ssd", "src/repro_torch/csrc/ssd.cu",
-                          "src/repro/kernels/ssd.py:100", cases)
+                          TPU_KERNELS["ssd"], cases)
 
 
 @phase("profile: device time by kernel over served B=16 dispatches")
-def profile_phase(torch, engine, inputs):
+def profile_phase(torch, engine, inputs, label="untuned"):
     """Where one full-rung dispatch's device time goes (torch.profiler,
     CUDA activity), and the device's idle share of the window."""
     from torch.profiler import ProfilerActivity, profile
@@ -460,7 +624,7 @@ def profile_phase(torch, engine, inputs):
     if not rows:
         print("   profiler recorded no device time: not measured")
         return None
-    print(f"   {n} dispatches: wall {wall * 1e3:.3f} ms "
+    print(f"   {label}, {n} dispatches: wall {wall * 1e3:.3f} ms "
           f"({wall / n * 1e3:.3f} ms each), device busy "
           f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f}")
     for dev_us, count, key in rows[:12]:
@@ -599,6 +763,7 @@ def _head_logits(torch, lm, hidden):
     x = torch.as_tensor(hidden, device=lm.device)
     with torch.no_grad():
         return _run_quantized(plan.qplans["head"], x,
+                              packed=plan.packed.get("head"),
                               w_q=plan.weight_arena["head"]).cpu()
 
 
@@ -713,6 +878,186 @@ def lm_profile_phase(torch, lm):
     return out
 
 
+@phase("main path: serve cnet_plus_scalar (full width) on accel with "
+       "--autotune --tuning-cache, then a second engine over the warm cache")
+def tuned_serve_phase(torch, sched0, cache_path):
+    """The same trace as serve_phase through the plan-time autotuner: each
+    request's output must equal the untuned served output bit for bit
+    (those are held against the CPU engine already). Per dispatch the
+    tuned plan launches the stem's channel-blocked conv once."""
+    import numpy as np
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = serve.parser().parse_args([
+        "--mode", "space", "--model", "cnet_plus_scalar", "--backend",
+        "accel", "--requests", str(N_REQUESTS), "--batch", str(LADDER_TOP),
+        "--autotune", "--tuning-cache", cache_path])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched, trace, engines = serve.build_scheduler(args)
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sched.serve_trace(trace)
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    engine = engines["cnet_plus_scalar"]
+    tel = sched.telemetry()["cnet_plus_scalar"]
+    plan = engine.planned("accel")
+    print("\n".join(plan.autotune_lines()))
+    print(f"   tuner stats {engine.tuner.stats}; cache {cache_path} holds "
+          f"{len(engine.tuner.cache)} entries")
+    n_disp = len(sched.dispatches)
+    n_warm = 2 * len(serve.capped_ladder(LADDER_TOP))
+    print(f"   setup (calibrate + tune + warm-up) {setup:.2f} s; served "
+          f"{tel.n_completed}/{N_REQUESTS} requests in {n_disp} dispatches, "
+          f"wall {wall:.3f} s, p50 {tel.p50_latency_ms:.2f} ms, "
+          f"p99 {tel.p99_latency_ms:.2f} ms")
+    print(f"   launch counts: {counts}")
+    assert tel.n_completed == N_REQUESTS, tel.n_completed
+    n = n_warm + n_disp
+    assert counts["conv2d_int8_cout_blocks"] == n, counts
+    assert counts["conv2d_int8"] == 2 * n, counts
+    assert counts["int8_matmul"] == 2 * n, counts
+    assert counts["quantize_apply"] == 5, counts
+    assert plan.packed["act0"].cout_per_block == 16, plan.packed["act0"]
+    assert (plan.packed["fc1_act"].bk, plan.packed["fc1_act"].bn) == \
+        (1024, 96)
+    assert tuple(plan.weight_arena["fc1_act"].shape) == (33792, 96)
+    assert tuple(plan.weight_arena["head"].shape) == (96, 8)
+    want = {c.rid: c.outputs["head"] for c in sched0.completions}
+    got = {c.rid: c.outputs["head"] for c in sched.completions}
+    assert sorted(got) == sorted(want) == list(range(N_REQUESTS))
+    worst = max(float(np.abs(got[r].astype(np.float64) - want[r]).max())
+                for r in got)
+    for r in got:
+        assert got[r].dtype == want[r].dtype
+        assert np.array_equal(got[r], want[r]), (r, worst)
+    print(f"   {N_REQUESTS} outputs bit-identical to the untuned served "
+          f"outputs (max |diff| {worst})")
+    # a second engine over the saved cache: no candidate is priced again
+    warm = Engine(engine.graph, engine.params, device=engine.device,
+                  autotune=True, tuning_cache=cache_path)
+    warm.share_calibration(engine)
+    for rung in serve.capped_ladder(LADDER_TOP):
+        warm.compile("accel", rung)
+    stats = warm.tuner.stats
+    print(f"   warm-cache engine: tuner stats {stats}")
+    assert stats["evaluated"] == 0, stats
+    assert stats["cache_hits"] == stats["nodes"] > 0, stats
+    return sched, engine, counts
+
+
+@phase("--autotune-measure: a CNet engine whose tuner times its top "
+       "picks on the card, one B=16 dispatch against the served outputs")
+def measured_tune_phase(torch, sched0, engine0, inputs):
+    """The opt-in measured refinement, driven once on the card: only the
+    convs' channel blocking changes the launch, so only the conv nodes are
+    timed. Whatever it picks, the outputs must equal the untuned served
+    ones bit for bit. Not part of any served path's launch counts."""
+    import numpy as np
+    from repro_torch.core.engine import Engine
+    e = Engine(engine0.graph, engine0.params, device=engine0.device,
+               autotune=True, autotune_measure=True)
+    e.share_calibration(engine0)
+    reqs = inputs[:BATCH]
+    batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+    t0 = time.perf_counter()
+    got = e.run_batch(batch, "accel")["head"]
+    tune_s = time.perf_counter() - t0
+    got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+    plan = e.planned("accel")
+    print("\n".join(plan.autotune_lines()))
+    print(f"   tuner stats {e.tuner.stats}; lowering (tuning, timing) and "
+          f"the first dispatch {tune_s:.2f} s")
+    # the packing rung chooses the layouts by measurement; the B=16 rung
+    # is pinned to them, so its conv nodes have no launch left to time
+    decs = [d for t in plan._tuning.values() for d in t.values()]
+    assert e.tuner.stats["measured"] > 0, e.tuner.stats
+    assert any(d.source == "measured" for d in decs
+               if d.kind == "int8_conv"), decs
+    assert all(d.source == "model" for d in decs
+               if d.kind == "int8_dense"), decs
+    want = {c.rid: c.outputs["head"] for c in sched0.completions}
+    for i in range(BATCH):
+        assert np.array_equal(got[i], want[i]), i
+    print(f"   {BATCH} outputs bit-identical to the untuned served outputs")
+
+
+def _lm_steps(torch, lm, x, feed):
+    """Prefill ``x`` into slot 0, then one decode step per feature row of
+    ``feed`` (or of the engine's own output when ``feed`` is None); the
+    (result, vocab logits) of each step and the launch counts."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    slot = np.zeros(1, np.int32)
+    ops.reset_launch_counts()
+    results = [lm.prefill(x, slot)]
+    for i in range(LM_REF_STEPS):
+        hidden = feed[i] if feed is not None else results[-1].hidden
+        results.append(lm.decode_step(hidden, slot))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    return [(r, _head_logits(torch, lm, r.hidden)) for r in results], counts
+
+
+@phase("main path: the LM block at zamba2-1.2b widths with --autotune, one "
+       "request (prefill + 4 decode steps) against the untuned engine")
+def lm_tuned_phase(torch, lm):
+    """Two fresh LMEngines on the card over the served engine's weights and
+    calibration (shared, not redone): one untuned, one autotuned. Both
+    decode from the untuned engine's feedback features, so a step's
+    difference is that step's own."""
+    import numpy as np
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.lm import LMEngine
+    served = lm.engine
+    lms = {}
+    for name, tune in (("untuned", False), ("tuned", True)):
+        e = Engine(served.graph, served.params, device=served.device,
+                   autotune=tune)
+        e.share_calibration(served)
+        lms[name] = LMEngine(e, "accel", n_slots=1,
+                             max_new_tokens=LM_REF_STEPS + 1)
+    x = np.random.default_rng(7).normal(
+        size=(1, lm.seq_len, lm.d_model)).astype(np.float32) * 0.5
+    base, _ = _lm_steps(torch, lms["untuned"], x, None)
+    feed = [r.hidden for r, _ in base[:-1]]
+    steps, counts = _lm_steps(torch, lms["tuned"], x, feed)
+    plan = lms["tuned"].plan
+    print("\n".join(plan.autotune_lines()))
+    print(f"   launch counts (prefill + {LM_REF_STEPS} decode steps): "
+          f"{counts}")
+    n_q = len(plan.qplans)
+    assert counts["flash_attention"] == 1 and counts["ssd"] == 1, counts
+    assert counts["int8_matmul"] == n_q * (1 + LM_REF_STEPS), counts
+    assert plan.packed and all(plan.weight_arena[n] is plan.packed[n].w_q
+                               for n in plan.qplans)
+    for w in ("k_codes", "k_scale", "v_codes", "v_scale"):
+        exact(torch, lms["tuned"].caches["attn"][w][0, :lm.seq_len].cpu(),
+              lms["untuned"].caches["attn"][w][0, :lm.seq_len].cpu())
+    print("   prefill K/V cache codes and f16 scales: bit-exact to untuned")
+    worst, bad = 0.0, []
+    for i, ((res_t, lg_t), (res_u, lg_u)) in enumerate(zip(steps, base)):
+        e_l = float((lg_t - lg_u).abs().max())
+        e_h = float(np.abs(res_t.hidden - res_u.hidden).max())
+        top2 = torch.topk(lg_u[0], 2).values
+        margin = float(top2[0] - top2[1])
+        tt, tu = int(res_t.tokens[0]), int(res_u.tokens[0])
+        print(f"   step {i}: logits max |diff| {e_l:.3g}, resid2 max |diff| "
+              f"{e_h:.3g}, token tuned {tt} untuned {tu} (top-2 margin "
+              f"{margin:.3g})")
+        if not (np.isfinite(res_t.hidden).all()
+                and bool(torch.isfinite(lg_t).all())):
+            bad.append(f"step {i}: non-finite")
+        if margin > 2 * LM_LOGITS_ATOL and tt != tu:
+            bad.append(f"step {i}: tokens differ")
+        worst = max(worst, e_l, e_h)
+    assert worst <= LM_LOGITS_ATOL and not bad, (worst, bad)
+    print(f"   logits and resid2 within {LM_LOGITS_ATOL} (worst {worst:.3g})")
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this file",
@@ -733,29 +1078,44 @@ def main() -> int:
     if build_phase() is not None:
         gen = torch.Generator().manual_seed(0)
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        for ph in (matmul_phase, conv_phase, quantize_phase, flash_phase,
-                   ssd_phase):
+        for ph in (matmul_phase, conv_phase, conv_blocks_phase,
+                   quantize_phase, flash_phase, ssd_phase, conv_f32_phase):
             rec = ph(torch, gen, flush)
             if rec is not None:
                 records.append(rec)
         del flush
         torch.cuda.empty_cache()
         paths = {}                      # served path -> its launch counts
-        served = serve_phase(torch)
-        if served is not None:
-            sched, engine, counts, inputs = served
-            paths["cnet_plus_scalar"] = (CNN_KERNELS, counts)
-            reference_phase(torch, sched, engine, inputs)
-            profile_phase(torch, engine, inputs)
-            del sched, engine, inputs
-            torch.cuda.empty_cache()
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+        try:
+            served = serve_phase(torch)
+            if served is not None:
+                sched, engine, counts, inputs = served
+                paths["cnet_plus_scalar"] = (CNN_KERNELS, counts)
+                reference_phase(torch, sched, engine, inputs)
+                tuned = tuned_serve_phase(torch, sched,
+                                          str(tmp / "tuning.json"))
+                measured_tune_phase(torch, sched, engine, inputs)
+                profile_phase(torch, engine, inputs)
+                if tuned is not None:
+                    _, tuned_engine, counts = tuned
+                    paths["cnet_plus_scalar --autotune"] = (
+                        TUNED_CNN_KERNELS, counts)
+                    profile_phase(torch, tuned_engine, inputs, "autotuned")
+                del sched, engine, inputs, tuned
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         served = lm_serve_phase(torch)
         if served is not None:
             sched, lm, counts = served
             paths["lm"] = (LM_KERNELS, counts)
             lm_reference_phase(torch, lm)
             lm_profile_phase(torch, lm)
-        if len(paths) != 2:
+            counts = lm_tuned_phase(torch, lm)
+            if counts is not None:
+                paths["lm --autotune"] = (TUNED_LM_KERNELS, counts)
+        if len(paths) != 4:
             FAILURES.append("a served path failed")
         for path, (names, counts) in paths.items():
             print(f"launches on the {path} path: {counts}")
@@ -763,8 +1123,9 @@ def main() -> int:
                             for n in names if counts[n] == 0)
         for rec in records:
             rec["launches"] = sum(c[rec["name"]] for _, c in paths.values())
-    if len(records) != 5:
-        FAILURES.append("kernel records missing")
+    if sorted(r["name"] for r in records) != sorted(TPU_KERNELS):
+        FAILURES.append(f"kernel records missing: {len(records)} of "
+                        f"{len(TPU_KERNELS)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(gpu_line(), flush=True)
     if FAILURES:

@@ -15,6 +15,10 @@ Three execution backends for an op graph:
 card by default (raising when there is none), or ``"cpu"``, where every
 kernel is replaced by its plain PyTorch version. The backend is a plan
 choice, the device an execution choice; the two are independent.
+
+``autotune=True`` runs the plan-time tile search and weight prepack
+(``core/autotune.py``) at lowering; ``autotune=False`` (the default) serves
+the heuristic kernel schedule. Both give bit-identical int8 outputs.
 """
 from __future__ import annotations
 
@@ -64,7 +68,9 @@ class Engine:
 
     def __init__(self, graph: Graph, params: Dict[str, Dict[str, object]],
                  ptq_demote_threshold: float = 0.2, fuse: bool = True,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, autotune: bool = False,
+                 tuning_cache=None, autotune_measure: bool = False,
+                 autotune_pack_batch: int = 32):
         self.device = resolve_device(device)
         self.graph = graph
         self.params = {
@@ -75,11 +81,36 @@ class Engine:
         self.ptq_demote_threshold = ptq_demote_threshold
         # fuse=False skips the graph-compiler pass pipeline
         self.fuse = fuse
+        # autotune=True tunes kernel schedules and prepacks weights at
+        # lowering. ``tuning_cache`` is a JSON path (or a TuningCache):
+        # a warm cache skips every candidate evaluation;
+        # ``autotune_measure`` also times the model's top-K picks that
+        # launch different kernels on the card
+        self.autotune = autotune
+        self.autotune_pack_batch = autotune_pack_batch
+        self._tuner = None
+        if autotune:
+            from repro_torch.core.autotune import Autotuner, TuningCache
+            cache = (tuning_cache if isinstance(tuning_cache, TuningCache)
+                     else TuningCache(tuning_cache))
+            self._tuner = Autotuner(cache, measure=autotune_measure,
+                                    device=self.device)
+        elif tuning_cache is not None or autotune_measure:
+            # silently dropping these would serve heuristic plans while
+            # the caller believes a warm cache is in play
+            raise ValueError(
+                "tuning_cache/autotune_measure require autotune=True")
         self._quant: Optional[Dict[str, QuantizedLayer]] = None
         self._calib: Dict[str, float] = {}
         self._ptq_err: Dict[str, float] = {}
         self._planned: Dict[str, ExecutionPlan] = {}
         self._compiled: Dict[tuple, object] = {}
+
+    @property
+    def tuner(self):
+        """The engine's Autotuner (None when ``autotune=False``): its
+        ``stats`` and ``cache`` show whether a lowering searched."""
+        return self._tuner
 
     # -- planning (paper: run the inspector, then choose the toolchain) -----
 
@@ -145,7 +176,8 @@ class Engine:
                 quant=self._quant, act_absmax=self._calib,
                 ptq_err=self._ptq_err,
                 ptq_demote_threshold=self.ptq_demote_threshold,
-                fuse=self.fuse, device=self.device)
+                fuse=self.fuse, device=self.device, tuner=self._tuner,
+                pack_batch=self.autotune_pack_batch)
         return self._planned[key]
 
     def compile(self, backend: str = "flex", batch_size: int = 1):

@@ -272,6 +272,7 @@ class LMEngine:
             xs = [vals[i] for i in node.inputs]
             if name in plan.qplans:
                 vals[name] = _run_quantized(plan.qplans[name], xs[0],
+                                            packed=plan.packed.get(name),
                                             w_q=weights[name])
                 continue
             if node.op == "fused" and base_op(node) != "attention":

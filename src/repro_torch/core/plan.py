@@ -7,7 +7,10 @@
   contiguous accel/flex segments over the rewritten graph, PTQ scales
   folded into per-node constants, and the static activation arena that
   prices the plan's :class:`~repro_torch.core.energy.CostSignature`.
-  ``fuse=False`` skips the pass pipeline and builds per-node plans.
+  ``fuse=False`` skips the pass pipeline and builds per-node plans. With a
+  ``tuner`` (``core/autotune.py``) the plan tunes each batch rung's kernel
+  schedule at lowering and, on ``accel``, prepacks its int8 weights into
+  tile-aligned arena buffers once, at ``pack_batch``.
 * :class:`LoweredPlan` / :class:`CompiledPlan` — the plan bound to one
   batch size: a callable over ``[B, ...]`` tensors. PyTorch runs eagerly,
   so binding is all a lowering does; ``n_traces`` still counts lowerings
@@ -29,11 +32,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import autotune as autotune_mod
 from repro_torch.core import energy as energy_mod
 from repro_torch.core import memory as memory_mod
 from repro_torch.core.opgraph import Graph, Node, base_op, consumers, param_node
 from repro_torch.core.passes import PassContext, PassManager, PassReport
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.conv2d import conv_geometry, pad_input
 from repro_torch.kernels.epilogue import f32, quantize_act
 
 
@@ -108,23 +113,27 @@ def _reshape_b(x, a):
     return x.reshape((x.shape[0],) + tuple(tgt))
 
 
-def _attention_b(xs, a):
+def _attention_b(xs, a, config=None):
     """Batched flash attention over [B, S, H, hd] q/k/v. ``kv_int8``
     round-trips K/V through the per-(pos, head) int8 quantizer — the same
     codes the KV-cache arena stores, so prefill output equals what cached
-    decode reconstructs."""
+    decode reconstructs. ``config`` carries the rung's tuned (bq, bk)."""
     q, k, v = (t.float() for t in xs)
     if a.get("kv_int8", False):
         from repro_torch.core import lm_quant
         k = lm_quant.dequantize_kv(*lm_quant.quantize_kv(k), torch.float32)
         v = lm_quant.dequantize_kv(*lm_quant.quantize_kv(v), torch.float32)
+    bq = config.bq if config is not None and config.bq else a.get("bq", 256)
+    bk = config.bk if config is not None and config.bk else a.get("bk", 256)
     return kops.flash_attention(q, k, v, causal=a.get("causal", True),
-                                bq=a.get("bq", 256), bk=a.get("bk", 256))
+                                bq=bq, bk=bk)
 
 
-def _ssd_b(xs, p, a):
+def _ssd_b(xs, p, a, config=None):
     x, B_, C_, dt = (t.float() for t in xs)
-    y, _ = kops.ssd(x, B_, C_, dt, p["A"], chunk=a.get("chunk", 256))
+    chunk = (config.chunk if config is not None and config.chunk
+             else a.get("chunk", 256))
+    y, _ = kops.ssd(x, B_, C_, dt, p["A"], chunk=chunk)
     return y
 
 
@@ -228,7 +237,10 @@ class ExecutionPlan:
     :meth:`lower` binds a batch size; ``n_traces`` counts lowerings.
     ``device`` is where the plan's weights and every value it computes
     live: quantized nodes launch the CUDA kernels on a CUDA device and run
-    the kernels' plain versions on the CPU.
+    the kernels' plain versions on the CPU. ``tuner=None`` serves the
+    heuristic kernel schedule; with an :class:`~repro_torch.core.autotune.
+    Autotuner` the weight layout is tuned once at ``pack_batch`` and each
+    rung's schedule against that layout.
     """
 
     def __init__(self, graph: Graph, params: Dict[str, Dict[str, torch.Tensor]],
@@ -238,7 +250,9 @@ class ExecutionPlan:
                  ptq_err: Optional[Dict[str, float]] = None,
                  ptq_demote_threshold: float = 0.2,
                  fuse: bool = True,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 tuner: Optional[autotune_mod.Autotuner] = None,
+                 pack_batch: int = 32):
         from repro_torch.core import inspector as inspector_mod
         missing = sorted({base_op(n) for n in graph.nodes.values()
                           if n.op not in ("input", "const")
@@ -252,6 +266,15 @@ class ExecutionPlan:
         self.fuse = fuse
         self.device = device
         self.n_traces = 0
+        # plan-time autotuning: weight-layout dims are tuned once at
+        # pack_batch (weights are packed once), per-rung tuning covers only
+        # the activation-schedule knobs against that fixed layout
+        self.tuner = tuner
+        self.pack_batch = pack_batch
+        self._tuning: Dict[int, Dict[str, autotune_mod.TuningDecision]] = {}
+        self._layouts: Optional[Dict[str, autotune_mod.KernelConfig]] = None
+        self.packed: Dict[str, Any] = {}
+        self._packed_bytes: Dict[str, int] = {}
         # live int8 weight buffers (fed to the program as ARGUMENTS) +
         # pristine host copies for re-pack recovery
         self._weight_arena: Optional[Dict[str, torch.Tensor]] = None
@@ -386,7 +409,8 @@ class ExecutionPlan:
     def _plan_arena(self) -> memory_mod.ArenaPlan:
         hw = energy_mod.BACKEND_HW[self.backend]
         w_bytes = energy_mod.weight_bytes(self.graph, self.backend,
-                                          self._quantized_names(), None)
+                                          self._quantized_names(),
+                                          self._packed_bytes or None)
         # BRAM-resident KV slots shrink the activation budget exactly
         # like resident weights do
         kv_bram = self.kv_plan.bram_bytes if self.kv_plan is not None else 0
@@ -402,14 +426,47 @@ class ExecutionPlan:
                                      act_dtype, backend=self.backend,
                                      weight_bytes=w_bytes)
 
+    # -- autotuning -----------------------------------------------------------
+
+    def _ensure_autotuned(self, batch_size: int) -> None:
+        """Tune (and, on the accel path, prepack) once per batch rung.
+        The packing step runs first, at ``pack_batch``: it fixes the
+        weight-layout dims, builds the tile-aligned buffers, and
+        re-budgets the activation arena against the packed footprint —
+        then every rung's search is constrained to that layout."""
+        if self.tuner is None or batch_size in self._tuning:
+            return
+        if self.backend == "accel" and self._layouts is None:
+            pack = self.tuner.tune_plan(self, self.pack_batch)
+            self._layouts = {
+                n: d.config for n, d in pack.items()
+                if d.kind in autotune_mod.INT8_KINDS}
+            self.packed = autotune_mod.build_packed_weights(
+                self, self._layouts)
+            self._packed_bytes = {n: p.packed_bytes
+                                  for n, p in self.packed.items()}
+            self._weight_arena = None       # rebuild over packed buffers
+            if self.arena is not None:
+                self.arena = self._plan_arena()
+            self._tuning[self.pack_batch] = pack
+            if batch_size == self.pack_batch:
+                return
+        layouts = self._layouts if self.backend == "accel" else None
+        self._tuning[batch_size] = self.tuner.tune_plan(
+            self, batch_size, layouts=layouts)
+
     # -- the live weight arena -----------------------------------------------
 
     @property
     def weight_arena(self) -> Dict[str, torch.Tensor]:
-        """Live int8 weight buffers, one per quantized node, read by the
+        """Live int8 weight buffers, one per quantized node (the packed
+        tile-aligned buffer where a prepacked entry exists), read by the
         program on every call (a swapped entry takes effect at once)."""
         if self._weight_arena is None:
-            arena = {name: qp.w_q for name, qp in self.qplans.items()}
+            arena = {}
+            for name, qp in self.qplans.items():
+                pk = self.packed.get(name)
+                arena[name] = pk.w_q if pk is not None else qp.w_q
             self._weight_arena = arena
             self._host_weights = {n: a.cpu().numpy().copy()
                                   for n, a in arena.items()}
@@ -434,12 +491,16 @@ class ExecutionPlan:
 
     # -- the batched program -------------------------------------------------
 
-    def batched_fn(self) -> Callable:
+    def batched_fn(self, tuning: Optional[Dict[str, Any]] = None
+                   ) -> Callable:
         """The plan as a callable ``f(inputs[B,...], rngs[B,2], weights)``:
-        ``weights`` is the live :attr:`weight_arena` dict; ``rngs`` carries
-        one seed pair per sample for random ops (none is ported yet)."""
+        ``weights`` is the live :attr:`weight_arena` dict (prepacked
+        entries arrive tile-aligned); ``rngs`` carries one seed pair per
+        sample for random ops (none is ported yet). ``tuning`` (node ->
+        TuningDecision, one batch rung) binds the autotuned configs."""
         graph, params = self.graph, self.params
         qplans, fused_into = self.qplans, self.fused_into
+        packed = self.packed
         device = self.device
 
         def f(inputs: Dict[str, torch.Tensor], rngs: torch.Tensor,
@@ -461,12 +522,22 @@ class ExecutionPlan:
                         vals[name] = vals[fused_into[name]]
                         continue
                     xs = [vals[i] for i in node.inputs]
+                    dec = tuning.get(name) if tuning else None
+                    cfg = dec.config if dec else None
                     if name in qplans:
-                        vals[name] = _run_quantized(qplans[name], xs[0],
-                                                    w_q=weights[name])
+                        vals[name] = _run_quantized(
+                            qplans[name], xs[0], config=cfg,
+                            packed=packed.get(name), w_q=weights[name])
                         continue
                     if node.op == "fused":      # fp32 fused (flex path)
                         vals[name] = _run_fused_f32(node, xs, params)
+                        continue
+                    if node.op == "attention":
+                        vals[name] = _attention_b(xs, node.attrs, cfg)
+                        continue
+                    if node.op == "ssd":
+                        vals[name] = _ssd_b(xs, params.get(name, {}),
+                                            node.attrs, cfg)
                         continue
                     vals[name] = BATCHED_OP_IMPLS[node.op](
                         xs, params.get(name, {}), node.attrs, None)
@@ -479,9 +550,11 @@ class ExecutionPlan:
     def lower(self, batch_size: int) -> "LoweredPlan":
         if batch_size in self._lowered:
             return self._lowered[batch_size]
+        self._ensure_autotuned(batch_size)
         self.weight_arena
         self.n_traces += 1
-        lp = LoweredPlan(self, batch_size, self.batched_fn())
+        lp = LoweredPlan(self, batch_size,
+                         self.batched_fn(self._tuning.get(batch_size)))
         self._lowered[batch_size] = lp
         return lp
 
@@ -491,7 +564,14 @@ class ExecutionPlan:
         """Plan-time modeled cost of one ``batch_size`` dispatch on this
         plan's backend (``backend`` overrides for the cpu/EagerPlan view).
         Fused plans price DDR traffic from the static arena; the eager
-        cpu view and unfused plans keep the op-by-op bytes model."""
+        cpu view and unfused plans keep the op-by-op bytes model. A tuned
+        plan prices its nodes with the kernel-level pricer of its rung's
+        decisions and charges the packed weight footprint."""
+        if backend is None and self.tuner is not None:
+            self._ensure_autotuned(batch_size)
+            return self._charge_kv(self.tuned_cost_signature(
+                batch_size, self._tuning[batch_size],
+                packed_bytes=self._packed_bytes or None))
         if self.arena is not None and backend is None:
             return self._charge_kv(energy_mod.plan_cost_signature(
                 self.graph, self.backend, batch_size, self.arena,
@@ -526,9 +606,16 @@ class ExecutionPlan:
         if backend is not None and backend != self.backend:
             sig = self.cost_signature(batch_size, backend=backend)
             return (energy_mod.StageCost("eager", backend, sig.latency_s),)
+        node_times = None
+        if self.tuner is not None:
+            self._ensure_autotuned(batch_size)
+            node_times = {n: d.modeled_s
+                          for n, d in self._tuning[batch_size].items()}
         return energy_mod.stage_costs(
             self.graph, self.backend, batch_size, self.segments,
-            arena=self.arena, quantized=self._quantized_names())
+            arena=self.arena, quantized=self._quantized_names(),
+            node_times=node_times,
+            packed_bytes=self._packed_bytes or None)
 
     def pipelined_cost_signature(self, batch_size: int,
                                  backend: Optional[str] = None
@@ -539,6 +626,33 @@ class ExecutionPlan:
         stages = self.stage_costs(batch_size, backend=backend)
         return dataclasses.replace(
             sig, pipelined_latency_s=max(s.seconds for s in stages))
+
+    def default_cost_signature(self, batch_size: int
+                               ) -> energy_mod.CostSignature:
+        """The heuristic-default configs priced through the same
+        kernel-level pricer (and the same packed footprint) as the tuned
+        signature: the baseline of every default-vs-tuned comparison."""
+        return self.tuned_cost_signature(
+            batch_size, autotune_mod.price_defaults(self, batch_size),
+            packed_bytes=self._packed_bytes or None)
+
+    def tuned_cost_signature(self, batch_size: int,
+                             decisions: Dict[str, Any],
+                             packed_bytes: Optional[Dict[str, int]] = None
+                             ) -> energy_mod.CostSignature:
+        """The plan's cost signature with the kernel-level pricing of a
+        decision set substituted for the coarse per-node roofline term."""
+        node_times = {n: d.modeled_s for n, d in decisions.items()}
+        extra = sum(d.extra_bytes for d in decisions.values())
+        if self.arena is not None:
+            return energy_mod.plan_cost_signature(
+                self.graph, self.backend, batch_size, self.arena,
+                quantized=self._quantized_names(), node_times=node_times,
+                extra_bytes=extra, packed_bytes=packed_bytes)
+        return energy_mod.cost_signature(
+            self.graph, self.backend, batch_size,
+            quantized=self._quantized_names(), node_times=node_times,
+            extra_bytes=extra, packed_bytes=packed_bytes)
 
     # -- reporting -----------------------------------------------------------
 
@@ -570,7 +684,8 @@ class ExecutionPlan:
 
     def as_text(self) -> str:
         """Full textual plan dump: the rewritten graph, per-node
-        quantization state, fusion groups, and the arena table."""
+        quantization state, fusion groups, the autotuner's decisions, and
+        the arena table."""
         lines = [self.summary(), "", self.graph.summary()]
         if self.qplans:
             lines.append("")
@@ -584,23 +699,63 @@ class ExecutionPlan:
                     bits.append("int8-in")
                 lines.append(f"  int8 {name:24s} {qp.op:7s} "
                              + " ".join(bits))
+        if self._tuning:
+            lines.append("")
+            lines.extend(self.autotune_lines())
         if self.arena is not None:
             lines.append("")
             lines.append(self.arena.summary())
         return "\n".join(lines)
 
+    def autotune_lines(self) -> List[str]:
+        """One block per tuned batch rung: each node's decision, its
+        modeled time against the default's, and its packed footprint."""
+        lines = []
+        for bsz in sorted(self._tuning):
+            lines.append(f"  autotune @ batch {bsz}:")
+            for name, d in self._tuning[bsz].items():
+                cfg = d.config
+                if d.kind == "int8_dense":
+                    desc = f"tile {cfg.bm}x{cfg.bn}x{cfg.bk}"
+                elif d.kind == "int8_conv":
+                    desc = f"rows/blk {cfg.rows_per_block}"
+                    if cfg.cout_per_block:
+                        desc += f" cout/blk {cfg.cout_per_block}"
+                elif d.kind == "attention":
+                    desc = f"blocks bq={cfg.bq} bk={cfg.bk}"
+                elif d.kind == "ssd":
+                    desc = f"chunk {cfg.chunk}"
+                else:
+                    desc = f"unroll x{cfg.unroll}"
+                pk = self.packed.get(name)
+                pb = (f"  packed={pk.packed_bytes:,} B"
+                      if pk is not None else "")
+                lines.append(
+                    f"    {name:24s} {desc:20s} "
+                    f"t={d.modeled_s*1e6:9.2f} us "
+                    f"(default {d.default_s*1e6:9.2f} us, "
+                    f"x{d.speedup:.2f}) [{d.source}]{pb}")
+        return lines
+
 
 def _run_quantized(qp: QuantNodePlan, x: torch.Tensor,
+                   config: Optional[Any] = None,
+                   packed: Optional[Any] = None,
                    w_q: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One kernel per quantized layer: static-scale quantize -> int8
     matmul/conv -> dequant (+bias, +act, +requantize) epilogue.
 
     Activations beyond the calibration absmax saturate at +-127, as on the
     accelerator. When the producer already requantized (``int8_input``)
-    the incoming int8 values are consumed directly. ``w_q`` is the node's
-    live weight-arena buffer (``qp.w_q`` when omitted)."""
+    the incoming int8 values are consumed directly. With ``packed`` (a
+    prepacked arena entry) the kernels read the tile-aligned weights in
+    place, and the conv's input is staged once by the plan-time geometry;
+    ``config`` binds the rung's tuned schedule. Both paths are bit-exact
+    to the heuristic one. ``w_q`` is the node's live weight-arena buffer
+    (``packed.w_q`` / ``qp.w_q`` when omitted)."""
     s = qp.act_scale
-    wq = qp.w_q if w_q is None else w_q
+    wq = w_q if w_q is not None else (
+        packed.w_q if packed is not None else qp.w_q)
     if qp.op == "dense":
         # per_position folds every leading (batch, position) axis into
         # the matmul M dim and restores them afterwards
@@ -610,12 +765,33 @@ def _run_quantized(qp: QuantNodePlan, x: torch.Tensor,
         x_q = x2 if qp.int8_input else quantize_act(x2, s)
         scales = torch.full((x2.shape[0],), f32(s), dtype=torch.float32,
                             device=x2.device)
-        out = kops.int8_matmul(x_q, wq, scales, qp.w_scale, qp.bias,
-                               act=qp.act, requant_scale=qp.requant_scale)
+        if packed is not None:
+            out = kops.int8_matmul(
+                x_q, wq, scales, packed.w_scale, packed.bias, act=qp.act,
+                requant_scale=qp.requant_scale,
+                bm=(config.bm if config and config.bm else 128),
+                bn=packed.bn, bk=packed.bk, prepacked=True, n_out=packed.n)
+        else:
+            out = kops.int8_matmul(x_q, wq, scales, qp.w_scale, qp.bias,
+                                   act=qp.act,
+                                   requant_scale=qp.requant_scale)
         if qp.per_position:
             out = out.reshape(tuple(lead) + (out.shape[-1],))
         return out
     x_q = x if qp.int8_input else quantize_act(x, s)
+    if packed is not None:
+        h, w = int(x_q.shape[1]), int(x_q.shape[2])
+        kh, kw = int(wq.shape[0]), int(wq.shape[1])
+        rows = (config.rows_per_block
+                if config and config.rows_per_block else 8)
+        geom = conv_geometry(h, w, kh, kw, qp.stride, qp.padding, rows)
+        x_q = pad_input(x_q, geom)       # plan-time geometry, one pad op
+        return kops.conv2d_int8(
+            x_q, wq, packed.w_scale, packed.bias, x_scale=s,
+            stride=qp.stride, padding=qp.padding, act=qp.act,
+            requant_scale=qp.requant_scale, rows_per_block=rows,
+            cout_per_block=packed.cout_per_block, cout=packed.cout,
+            pre_padded=True, in_hw=(h, w))
     return kops.conv2d_int8(
         x_q, wq, qp.w_scale, qp.bias, x_scale=s,
         stride=qp.stride, padding=qp.padding, act=qp.act,

@@ -20,6 +20,23 @@
 // On the served shapes the bound is the memory traffic (the layer is far
 // below the card's int8 rate); this design's limit is its scalar __dp4a
 // issue rate, which later work replaces with tensor-core MMA.
+//
+// The channel-blocked grid replaces the second Pallas grid of the same
+// function (conv2d.py, the `cout_per_block` pallas_call), which the
+// plan-time autotuner selects: the grid gains a channel-block axis
+// (blockIdx.z = image * n_channel_blocks + channel block) and each block
+// stages only its [KH, KW, Cin, bc] filter slice. Whole-Cout staging needs
+// 4 * KH * KW * Cin bytes per output channel of shared memory, so a wide
+// filter (3x3x128 -> 512: 576 KB) does not fit a block's 227 KB at all;
+// channel blocks lift that limit at the price of staging the input patch
+// once per channel block. Both grids are one kernel body: the
+// whole-Cout grid is the channel-blocked one with a single block of
+// round4(Cout) channels.
+//
+// Weights may arrive padded ([KH, KW, Cin, Cw] with Cw >= Cout: the
+// autotuner's prepacked arena); channels at or past Cw stage as zeros and
+// channels at or past the logical Cout are never written. A pre-padded
+// input is passed with its padded dims and pad offsets 0.
 #include "common.cuh"
 
 constexpr int kRH = 8;        // output rows per block
@@ -33,6 +50,9 @@ struct ConvArgs {
   const float* bias;
   void* out;
   int B, H, W, Cin, Cout, KH, KW, stride, pad_top, pad_left, Ho, Wo;
+  int Cw;    // channel stride of w, w_scale, bias (>= Cout when packed)
+  int bc;    // output channels per block
+  int ncb;   // channel blocks per image
   float x_scale;
   int act, requant;
   float inv;
@@ -46,7 +66,7 @@ __host__ __device__ inline Tiling tiling(const ConvArgs& a) {
   Tiling t;
   t.cin4 = (a.Cin + 3) & ~3;
   t.c4w = t.cin4 / 4;
-  t.cout4 = (a.Cout + 3) & ~3;
+  t.cout4 = (a.bc + 3) & ~3;   // staged channels of one block
   t.ncg = t.cout4 / 4;
   t.ph = (kRH - 1) * a.stride + a.KH;
   t.pw = (kTW - 1) * a.stride + a.KW;
@@ -55,29 +75,35 @@ __host__ __device__ inline Tiling tiling(const ConvArgs& a) {
   return t;
 }
 
+// kCoutBlocks only names the two grids apart in a profile: the body is
+// the same, and the whole-Cout grid has ncb == 1.
+template <bool kCoutBlocks>
 __global__ void __launch_bounds__(kThreads) conv2d_int8_kernel(ConvArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tiling t = tiling(a);
   int8_t* patch = reinterpret_cast<int8_t*>(smem);
   int* wsm = reinterpret_cast<int*>(smem + t.patch_bytes);
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / a.ncb;
+  const int co0 = (blockIdx.z % a.ncb) * a.bc;   // first channel of block
   const int ho0 = blockIdx.y * kRH;
   const int wo0 = blockIdx.x * kTW;
 
-  // filter -> [tap][cout4] words, 4 input channels per word, zero padded
+  // filter slice -> [tap][cout4] words, 4 input channels per word, zero
+  // past the block's bc channels and past the weight's Cw channels
   for (int i = threadIdx.x; i < t.weight_words; i += kThreads) {
-    const int co = i % t.cout4;
+    const int cl = i % t.cout4;
+    const int co = co0 + cl;
     const int tw = i / t.cout4;
     const int q = tw % t.c4w;
     const int rc = tw / t.c4w;
     unsigned int word = 0;
-    if (co < a.Cout) {
+    if (cl < a.bc && co < a.Cw) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int ci = q * 4 + j;
         if (ci < a.Cin)
           word |= static_cast<unsigned int>(
-                      a.w[(static_cast<long long>(rc) * a.Cin + ci) * a.Cout +
+                      a.w[(static_cast<long long>(rc) * a.Cin + ci) * a.Cw +
                           co] & 0xff) << (8 * j);
       }
     }
@@ -130,8 +156,9 @@ __global__ void __launch_bounds__(kThreads) conv2d_int8_kernel(ConvArgs a) {
         ((static_cast<long long>(b) * a.Ho + ho) * a.Wo + wo) * a.Cout;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int co = cg * 4 + j;
-      if (co >= a.Cout) break;
+      const int cl = cg * 4 + j;
+      const int co = co0 + cl;
+      if (cl >= a.bc || co >= a.Cout) break;
       const float deq = __fmul_rn(a.w_scale[co], a.x_scale);
       const float accf = __int2float_rn(accs[j]);
       const float v = a.bias ? __fmaf_rn(accf, deq, a.bias[co])
@@ -141,34 +168,47 @@ __global__ void __launch_bounds__(kThreads) conv2d_int8_kernel(ConvArgs a) {
   }
 }
 
-extern "C" int conv2d_int8_smem_bytes(int Cin, int Cout, int KH, int KW,
+extern "C" int conv2d_int8_smem_bytes(int Cin, int bc, int KH, int KW,
                                       int stride) {
   ConvArgs a{};
-  a.Cin = Cin; a.Cout = Cout; a.KH = KH; a.KW = KW; a.stride = stride;
+  a.Cin = Cin; a.bc = bc; a.KH = KH; a.KW = KW; a.stride = stride;
   const Tiling t = tiling(a);
   return t.patch_bytes + 4 * t.weight_words;
 }
 
+template <bool kCoutBlocks>
+static int launch(const ConvArgs& a, void* stream) {
+  const int smem = conv2d_int8_smem_bytes(a.Cin, a.bc, a.KH, a.KW, a.stride);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv2d_int8_kernel<kCoutBlocks>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid((a.Wo + kTW - 1) / kTW, (a.Ho + kRH - 1) / kRH, a.B * a.ncb);
+  conv2d_int8_kernel<kCoutBlocks><<<grid, kThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H, W are the dims of x as stored (the padded dims when the caller staged
+// the padding, with pad_top = pad_left = 0); Cw is w's channel stride.
+// bc == 0 runs the whole-Cout grid (one block of round4(Cout) channels);
+// bc > 0 runs the channel-blocked grid with ceil(Cout / bc) blocks.
 extern "C" int conv2d_int8(const void* x, const void* w, const void* w_scale,
                            const void* bias, void* out, int B, int H, int W,
-                           int Cin, int Cout, int KH, int KW, int stride,
-                           int pad_top, int pad_left, int Ho, int Wo,
-                           float x_scale, int act, int requant, float inv,
-                           void* stream) {
+                           int Cin, int Cout, int Cw, int KH, int KW,
+                           int stride, int pad_top, int pad_left, int Ho,
+                           int Wo, int bc, float x_scale, int act,
+                           int requant, float inv, void* stream) {
   if (B == 0 || Ho == 0 || Wo == 0 || Cout == 0) return 0;
+  const bool blocks = bc > 0;
+  if (!blocks) bc = Cout;
+  const int ncb = (Cout + bc - 1) / bc;
   ConvArgs a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
              static_cast<const float*>(w_scale),
              static_cast<const float*>(bias), out, B, H, W, Cin, Cout, KH, KW,
-             stride, pad_top, pad_left, Ho, Wo, x_scale, act, requant, inv};
-  const int smem = conv2d_int8_smem_bytes(Cin, Cout, KH, KW, stride);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv2d_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid((Wo + kTW - 1) / kTW, (Ho + kRH - 1) / kRH, B);
-  conv2d_int8_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+             stride, pad_top, pad_left, Ho, Wo, Cw, bc, ncb, x_scale, act,
+             requant, inv};
+  return blocks ? launch<true>(a, stream) : launch<false>(a, stream);
 }

@@ -20,6 +20,12 @@
 // batch x positions into M, and M * N passes 2^31 (B = 16, S = 4096 and a
 // 32000-word head is 2.1 G). M / 16 rides on gridDim.z, which caps it at
 // 65,535 tiles; the wrapper refuses a larger M before launching.
+//
+// Prepacked weights (the autotuner's arena: [kp, np] zero-padded to whole
+// tiles, scales and bias at length np) are read in place: `ldw` is the
+// weight row stride (np), the K loop runs over x's logical K (the padded
+// rows are zeros and would add nothing), and only the logical N columns are
+// computed and written. With unpacked weights ldw == N.
 #include "common.cuh"
 
 constexpr int kBN = 128;   // threads per block = output columns per block
@@ -31,7 +37,8 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ xs, const float* __restrict__ ws,
                    const float* __restrict__ bias, void* __restrict__ out,
                    int* __restrict__ acc, unsigned int* __restrict__ done,
-                   int M, int K, int N, int act, int requant, float inv) {
+                   int M, int K, int N, int ldw, int act, int requant,
+                   float inv) {
   __shared__ __align__(16) int8_t xt[kMT][kKC];
   __shared__ bool is_last;
   const int n = blockIdx.x * kBN + threadIdx.x;
@@ -55,7 +62,7 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k = k0 + kk + j;
-        const int b = (k < K) ? w[static_cast<long long>(k) * N + n] : 0;
+        const int b = (k < K) ? w[static_cast<long long>(k) * ldw + n] : 0;
         wp |= static_cast<unsigned int>(b & 0xff) << (8 * j);
       }
       if (wp == 0) continue;
@@ -97,8 +104,8 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 extern "C" int int8_matmul(const void* x, const void* w, const void* xs,
                            const void* ws, const void* bias, void* out,
-                           void* scratch, int M, int K, int N, int act,
-                           int requant, float inv, void* stream) {
+                           void* scratch, int M, int K, int N, int ldw,
+                           int act, int requant, float inv, void* stream) {
   if (M == 0 || N == 0) return 0;
   const int nt = (N + kBN - 1) / kBN;
   const int kc = K > 0 ? (K + kKC - 1) / kKC : 1;
@@ -110,8 +117,8 @@ extern "C" int int8_matmul(const void* x, const void* w, const void* xs,
   int8_matmul_kernel<<<grid, kBN, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), out, acc, done, M, K, N, act, requant,
-      inv);
+      static_cast<const float*>(bias), out, acc, done, M, K, N, ldw, act,
+      requant, inv);
   return static_cast<int>(cudaGetLastError());
 }
 

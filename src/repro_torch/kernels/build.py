@@ -35,6 +35,7 @@ SOURCES = {
     "quantize_apply": "quantize.cu",
     "int8_matmul": "int8_matmul.cu",
     "conv2d_int8": "conv2d_int8.cu",
+    "conv2d_f32": "conv2d_f32.cu",
     "flash_attention": "flash_attention.cu",
     "ssd": "ssd.cu",
 }

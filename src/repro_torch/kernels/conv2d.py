@@ -17,6 +17,23 @@ Epilogue: ``fma(f32(acc), w_scale[co] * f32(x_scale), bias[co])`` — the
 dequant product is formed first, and the bias add is one rounding, as the
 reference's backend computes it — then act and the optional requantize.
 
+``cout_per_block`` replaces the reference's second Pallas grid
+(``conv2d.py``, the ``cout_per_block`` pallas_call), which the plan-time
+autotuner selects: the CUDA grid gains a channel-block axis and each block
+stages only its [KH, KW, Cin, bc] filter slice, which lifts the whole-Cout
+shared-memory limit (a 3x3x128 -> 512 filter does not fit one block
+whole). ``pre_padded``/``in_hw``/``rows_per_block``/``cout`` have the
+reference's meaning (an input already staged by :func:`conv_geometry` at
+``rows_per_block``, weights padded to whole channel blocks with the
+logical ``cout`` passed apart); ``rows_per_block`` fixes only that staging
+geometry, the CUDA row tile stays 8. Launches of the two grids are counted
+apart (``launches``, ``launches_cout_blocks``).
+
+``conv2d`` replaces the reference's fp32 Pallas kernel (``conv2d.py``,
+``_kernel``) with ``csrc/conv2d_f32.cu``: NHWC SAME/VALID, stride s, bias
+and optional relu in IEEE fp32 FFMA (no TF32, no fast math), the same
+tiling as the int8 kernel. It lies on no served path, as in the reference.
+
 ``ConvGeom``/``conv_geometry``/``pad_input`` are a plain copy of the
 reference's geometry (pure functions of static shapes).
 """
@@ -33,14 +50,20 @@ from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import (apply_epilogue, dequant_bias, f32,
                                           normalize_act, reciprocal_f32)
 
-# launches of the CUDA kernel (the plain version does not count)
+# launches of the CUDA kernels (the plain versions do not count): the
+# whole-Cout int8 grid, the channel-blocked int8 grid, the fp32 conv
 launches = 0
+launches_cout_blocks = 0
+launches_f32 = 0
 
 _ACT_CODE = {None: 0, "relu": 1, "sigmoid": 2}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
+_F32_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+                 + [ctypes.c_void_p])
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block can use
+MAX_GRID_Z = 65535          # images x channel blocks ride on gridDim.z
 
 
 class ConvGeom(NamedTuple):
@@ -94,19 +117,44 @@ def pad_input(x: torch.Tensor, g: ConvGeom) -> torch.Tensor:
     return F.pad(x, (0, 0, g.pad_left, g.pad_right, g.pad_top, g.pad_bottom))
 
 
+def _staging(x_q: torch.Tensor, kh: int, kw: int, stride: int,
+             padding: str, rows_per_block: int, pre_padded: bool,
+             in_hw) -> ConvGeom:
+    """The geometry of a call, checking a pre-padded input against it."""
+    if not pre_padded:
+        return conv_geometry(int(x_q.shape[1]), int(x_q.shape[2]), kh, kw,
+                             stride, padding, rows_per_block)
+    if in_hw is None:
+        raise ValueError("pre_padded=True needs in_hw=(H, W)")
+    g = conv_geometry(int(in_hw[0]), int(in_hw[1]), kh, kw, stride, padding,
+                      rows_per_block)
+    if tuple(x_q.shape[1:3]) != (g.h_pad, g.w_pad):
+        raise ValueError(
+            f"pre-padded input {tuple(x_q.shape)} does not match geometry "
+            f"({g.h_pad}, {g.w_pad})")
+    return g
+
+
 def conv2d_int8_plain(x_q: torch.Tensor, w_q: torch.Tensor,
                       w_scale: torch.Tensor,
                       bias: Optional[torch.Tensor] = None, *,
                       x_scale: float = 1.0, stride: int = 1,
                       padding: str = "SAME", act: Optional[str] = None,
-                      requant_scale: Optional[float] = None) -> torch.Tensor:
+                      requant_scale: Optional[float] = None,
+                      rows_per_block: int = 8, cout: Optional[int] = None,
+                      pre_padded: bool = False,
+                      in_hw=None) -> torch.Tensor:
     """The same function in plain PyTorch: shift-and-matmul over the taps,
-    with the int32 sums formed exactly in float64."""
-    b, h, wd, cin = x_q.shape
-    kh, kw, _, cout = w_q.shape
-    g = conv_geometry(h, wd, kh, kw, stride, padding)
-    xp = pad_input(x_q, g).double()
-    w = w_q.double()
+    with the int32 sums formed exactly in float64. Channel blocks are
+    independent, so the result does not depend on ``cout_per_block``;
+    padded weight channels past ``cout`` are sliced off."""
+    b = x_q.shape[0]
+    kh, kw, _, cw = w_q.shape
+    cout = cw if cout is None else int(cout)
+    g = _staging(x_q, kh, kw, stride, padding, rows_per_block, pre_padded,
+                 in_hw)
+    xp = (x_q if pre_padded else pad_input(x_q, g)).double()
+    w = w_q[..., :cout].double()
     acc = torch.zeros((b, g.h_out, g.w_out, cout), dtype=torch.float64,
                       device=x_q.device)
     for r in range(kh):
@@ -114,52 +162,80 @@ def conv2d_int8_plain(x_q: torch.Tensor, w_q: torch.Tensor,
             taps = xp[:, r:r + (g.h_out - 1) * stride + 1:stride,
                       c:c + (g.w_out - 1) * stride + 1:stride, :]
             acc += taps @ w[r, c]
-    dequant = w_scale.float() * f32(x_scale)
-    out = dequant_bias(acc, dequant, bias)
+    dequant = w_scale[:cout].float() * f32(x_scale)
+    out = dequant_bias(acc, dequant, None if bias is None else bias[:cout])
     return apply_epilogue(out, act, requant_scale)
 
 
-def smem_bytes(cin: int, cout: int, kh: int, kw: int, stride: int) -> int:
-    """Dynamic shared memory one block of the CUDA kernel takes for this
-    filter (input patch + filter tile), as the kernel's own code sizes
-    it (builds the kernel library on first use)."""
+def smem_bytes(cin: int, bc: int, kh: int, kw: int, stride: int) -> int:
+    """Dynamic shared memory one block of the int8 kernel takes for ``bc``
+    output channels (input patch + filter slice; ``bc`` = Cout for the
+    whole-Cout grid), as the kernel's own code sizes it (builds the
+    kernel library on first use)."""
     lib = build.library("conv2d_int8")
     fn = lib.conv2d_int8_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
-    return fn(cin, cout, kh, kw, stride)
+    return fn(cin, bc, kh, kw, stride)
 
 
 def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, *,
                 x_scale: float = 1.0, stride: int = 1, padding: str = "SAME",
                 relu: bool = False, act: Optional[str] = None,
-                requant_scale: Optional[float] = None) -> torch.Tensor:
+                requant_scale: Optional[float] = None,
+                rows_per_block: int = 8, cout_per_block: int = 0,
+                cout: Optional[int] = None, pre_padded: bool = False,
+                in_hw=None) -> torch.Tensor:
     """Quantized conv ``deq(conv_int32(x_q, w_q))`` with fused epilogue.
-    ``x_q`` [B, H, W, Cin] int8, ``w_q`` [KH, KW, Cin, Cout] int8 (HWIO),
-    ``w_scale``/``bias`` [Cout] f32, ``x_scale`` the static per-tensor
-    input scale. Returns [B, H_out, W_out, Cout] f32, or int8 with
-    ``requant_scale``."""
+    ``x_q`` [B, H, W, Cin] int8, ``w_q`` [KH, KW, Cin, Cout(_pad)] int8
+    (HWIO), ``w_scale``/``bias`` [Cout(_pad)] f32, ``x_scale`` the static
+    per-tensor input scale. Returns [B, H_out, W_out, cout] f32, or int8
+    with ``requant_scale``.
+
+    ``cout_per_block`` > 0 runs the channel-blocked grid whenever it
+    leaves more than one block (as the reference picks its grid);
+    ``cout`` is the logical channel count of padded weights;
+    ``pre_padded`` says ``x_q`` was staged by :func:`pad_input` at
+    ``rows_per_block`` from the logical ``in_hw``."""
     act = normalize_act(relu, act)
+    cw = w_q.shape[3] if w_q.ndim == 4 else 0
     if (x_q.ndim != 4 or w_q.ndim != 4 or x_q.shape[3] != w_q.shape[2]
             or x_q.dtype != torch.int8 or w_q.dtype != torch.int8
-            or w_scale.shape != (w_q.shape[3],)
-            or (bias is not None and bias.shape != (w_q.shape[3],))):
+            or w_scale.shape != (cw,)
+            or (bias is not None and bias.shape != (cw,))
+            or cout_per_block < 0 or rows_per_block <= 0
+            or (cout is not None and not 0 < cout <= cw)):
         raise ValueError(
             f"conv2d_int8: x {tuple(x_q.shape)} {x_q.dtype}, w "
             f"{tuple(w_q.shape)} {w_q.dtype}, w_scale "
-            f"{tuple(w_scale.shape)}")
+            f"{tuple(w_scale.shape)}, cout {cout}, cout_per_block "
+            f"{cout_per_block}, rows_per_block {rows_per_block}")
+    kh, kw = int(w_q.shape[0]), int(w_q.shape[1])
+    g = _staging(x_q, kh, kw, stride, padding, rows_per_block, pre_padded,
+                 in_hw)
     if build.on_cpu(x_q, w_q, w_scale, bias):
         return conv2d_int8_plain(x_q, w_q, w_scale, bias, x_scale=x_scale,
                                  stride=stride, padding=padding, act=act,
-                                 requant_scale=requant_scale)
-    global launches
-    b, h, wd, cin = x_q.shape
-    kh, kw, _, cout = w_q.shape
-    g = conv_geometry(h, wd, kh, kw, stride, padding)
-    smem = smem_bytes(cin, cout, kh, kw, stride)
+                                 requant_scale=requant_scale,
+                                 rows_per_block=rows_per_block, cout=cout,
+                                 pre_padded=pre_padded, in_hw=in_hw)
+    global launches, launches_cout_blocks
+    b, h, wd, cin = (int(d) for d in x_q.shape)
+    cout = cw if cout is None else int(cout)
+    # the reference's grid choice: channel blocks of bc over cout_pad
+    # (the weight's channels rounded up to whole blocks), unless one
+    # block would hold them all
+    bc = cout_per_block or cw
+    blocks = -(-cw // bc) * bc != bc
+    smem = smem_bytes(cin, bc if blocks else cout, kh, kw, stride)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"conv2d_int8: a {kh}x{kw}x{cin}x{cout} filter "
-                         f"needs {smem} B of shared memory per block")
+        raise ValueError(
+            f"conv2d_int8: a {kh}x{kw}x{cin}x{bc if blocks else cout} "
+            f"filter slice needs {smem} B of shared memory per block "
+            f"(at most {_SMEM_LIMIT}); set a smaller cout_per_block")
+    if b * (-(-cout // bc) if blocks else 1) > MAX_GRID_Z:
+        raise ValueError(f"conv2d_int8: {b} images x channel blocks exceed "
+                         f"gridDim.z ({MAX_GRID_Z})")
     x_q, w_q = x_q.contiguous(), w_q.contiguous()
     w_scale = w_scale.float().contiguous()
     if bias is not None:
@@ -167,15 +243,97 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     requant = requant_scale is not None
     out = torch.empty((b, g.h_out, g.w_out, cout), device=x_q.device,
                       dtype=torch.int8 if requant else torch.float32)
+    # a pre-padded input is read as stored: its dims, pad offsets 0
+    pad_top, pad_left = (0, 0) if pre_padded else (g.pad_top, g.pad_left)
     lib = build.library("conv2d_int8")
     fn = lib.conv2d_int8
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     rc = fn(build.ptr(x_q), build.ptr(w_q), build.ptr(w_scale),
-            build.ptr(bias), build.ptr(out), b, h, wd, cin, cout, kh, kw,
-            stride, g.pad_top, g.pad_left, g.h_out, g.w_out, f32(x_scale),
-            _ACT_CODE[act], int(requant),
+            build.ptr(bias), build.ptr(out), b, h, wd, cin, cout, cw, kh, kw,
+            stride, pad_top, pad_left, g.h_out, g.w_out,
+            bc if blocks else 0, f32(x_scale), _ACT_CODE[act], int(requant),
             reciprocal_f32(requant_scale) if requant else 0.0,
             build.stream(x_q))
     build.check(lib, rc, "conv2d_int8")
-    launches += 1
+    if blocks:
+        launches_cout_blocks += 1
+    else:
+        launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fp32 conv2d
+# ---------------------------------------------------------------------------
+
+
+def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+                 padding: str = "SAME", relu: bool = False) -> torch.Tensor:
+    """The fp32 conv in plain PyTorch, shift-and-matmul over the taps as
+    the reference's kernel computes it (float32 sums)."""
+    b = x.shape[0]
+    kh, kw, _, cout = w.shape
+    g = conv_geometry(int(x.shape[1]), int(x.shape[2]), kh, kw, stride,
+                      padding)
+    xp = pad_input(x.float(), g)
+    acc = torch.zeros((b, g.h_out, g.w_out, cout), dtype=torch.float32,
+                      device=x.device)
+    for r in range(kh):
+        for c in range(kw):
+            taps = xp[:, r:r + (g.h_out - 1) * stride + 1:stride,
+                      c:c + (g.w_out - 1) * stride + 1:stride, :]
+            acc = acc + taps @ w[r, c].float()
+    if bias is not None:
+        acc = acc + bias.float()
+    return torch.clamp_min(acc, 0.0) if relu else acc
+
+
+def f32_block_channels(cin: int, cout: int, kh: int, kw: int,
+                       stride: int) -> int:
+    """Output channels per block of the fp32 kernel: up to 64, halved
+    until the block's patch and filter slice fit shared memory (0 when
+    not even 4 channels fit)."""
+    lib = build.library("conv2d_f32")
+    fn = lib.conv2d_f32_block_channels
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    return fn(cin, cout, kh, kw, stride)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+           padding: str = "SAME", relu: bool = False) -> torch.Tensor:
+    """fp32 NHWC conv + bias + optional relu: ``x`` [B, H, W, Cin], ``w``
+    [KH, KW, Cin, Cout] (HWIO), ``bias`` [Cout]. Returns [B, H_out, W_out,
+    Cout] float32."""
+    if (x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]
+            or (bias is not None and bias.shape != (w.shape[3],))):
+        raise ValueError(f"conv2d: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if build.on_cpu(x, w, bias):
+        return conv2d_plain(x, w, bias, stride=stride, padding=padding,
+                            relu=relu)
+    global launches_f32
+    b, h, wd, cin = (int(d) for d in x.shape)
+    kh, kw, _, cout = (int(d) for d in w.shape)
+    g = conv_geometry(h, wd, kh, kw, stride, padding)
+    bc = f32_block_channels(cin, cout, kh, kw, stride)
+    if bc == 0:
+        raise ValueError(f"conv2d: a {kh}x{kw}x{cin} filter's input patch "
+                         f"does not fit one block's shared memory")
+    if b * -(-cout // bc) > MAX_GRID_Z:
+        raise ValueError(f"conv2d: {b} images x channel blocks exceed "
+                         f"gridDim.z ({MAX_GRID_Z})")
+    x, w = x.float().contiguous(), w.float().contiguous()
+    if bias is not None:
+        bias = bias.float().contiguous()
+    out = torch.empty((b, g.h_out, g.w_out, cout), device=x.device,
+                      dtype=torch.float32)
+    lib = build.library("conv2d_f32")
+    fn = lib.conv2d_f32
+    fn.argtypes, fn.restype = _F32_ARGTYPES, ctypes.c_int
+    rc = fn(build.ptr(x), build.ptr(w), build.ptr(bias), build.ptr(out), b,
+            h, wd, cin, cout, kh, kw, stride, g.pad_top, g.pad_left, g.h_out,
+            g.w_out, bc, int(relu), build.stream(x))
+    build.check(lib, rc, "conv2d")
+    launches_f32 += 1
     return out

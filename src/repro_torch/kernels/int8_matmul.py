@@ -13,6 +13,12 @@ The LM's per-position projections fold batch x positions into M (8192 at
 a B=4 prefill), where this design is far from its bound; indices into
 [M, N] are 64-bit, and M is capped by the grid (``MAX_GRID_Z`` row tiles).
 
+Prepacked weights (``prepacked=True``, the autotuner's arena) arrive as
+[kp, np] zero-padded to whole (bk, bn) tiles with ``w_scale``/``bias`` at
+length np; the kernel reads them in place with row stride np, loops over
+x's logical K and writes only ``n_out`` columns, so the result equals the
+unpacked product bit for bit.
+
 Epilogue: ``fma((f32(acc) * x_scale[m]), w_scale[n], bias[n])`` (one
 rounding for the bias add, as the reference's backend computes it), then
 relu/sigmoid, then the optional requantize ``clip(rint(x * (1/s)))``.
@@ -36,7 +42,7 @@ ROWS_PER_BLOCK = 16             # the kernel's row tile (kMT)
 MAX_GRID_Z = 65535              # CUDA's gridDim.z cap: row tiles per launch
 
 _ACT_CODE = {None: 0, "relu": 1, "sigmoid": 2}
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -72,27 +78,62 @@ def int8_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
     return apply_epilogue(out, act, requant_scale)
 
 
+def _unpack(x_q, w_q, w_scale, bias, bm, bn, bk, n_out):
+    """Check a prepacked operand set against its (bk, bn) layout and
+    return the logical N: w_q [kp, np] with kp, np whole tiles, x_q's K at
+    most kp, ``n_out`` at most np."""
+    k = x_q.shape[1]
+    kp, np_ = w_q.shape
+    n = np_ if n_out is None else int(n_out)
+    if (bm <= 0 or bn <= 0 or bk <= 0 or kp % bk or np_ % bn or k > kp
+            or not 0 < n <= np_ or w_scale.shape != (np_,)
+            or (bias is not None and bias.shape != (np_,))):
+        raise ValueError(
+            f"int8_matmul: prepacked w {tuple(w_q.shape)} does not hold "
+            f"(bk={bk}, bn={bn}) tiles for x {tuple(x_q.shape)}, n_out "
+            f"{n_out}, w_scale {tuple(w_scale.shape)}")
+    return n
+
+
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
                 x_scale: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None, *,
+                bm: int = 128, bn: int = 128, bk: int = 128,
                 relu: bool = False, act: Optional[str] = None,
                 requant_scale: Optional[float] = None,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                prepacked: bool = False,
+                n_out: Optional[int] = None) -> torch.Tensor:
     """``x_q`` [M, K] int8, ``w_q`` [K, N] int8, ``x_scale`` [M] f32
     (per row), ``w_scale`` [N] f32 and ``bias`` [N] f32 (per output
-    column). Returns [M, N] ``out_dtype``, or int8 with ``requant_scale``."""
+    column). Returns [M, N] ``out_dtype``, or int8 with ``requant_scale``.
+
+    With ``prepacked`` the weights are the arena's tile-aligned [kp, np]
+    buffer (scales and bias at length np) and the result is [M, n_out].
+    ``bm``/``bn``/``bk`` are the reference's block sizes: ``bn``/``bk``
+    fix the packed layout that is checked here, and none of them changes
+    the CUDA kernel's own tile (16 rows x 128 columns x 128-deep K)."""
     act = normalize_act(relu, act)
     out_dtype = out_dtype_for(requant_scale, out_dtype)
     m, k = x_q.shape
     k2, n = w_q.shape
-    if (k != k2 or x_q.dtype != torch.int8 or w_q.dtype != torch.int8
-            or x_scale.shape != (m,) or w_scale.shape != (n,)
-            or (bias is not None and bias.shape != (n,))):
+    if (x_q.dtype != torch.int8 or w_q.dtype != torch.int8
+            or x_scale.shape != (m,)):
         raise ValueError(
             f"int8_matmul: x {tuple(x_q.shape)} {x_q.dtype}, w "
             f"{tuple(w_q.shape)} {w_q.dtype}, x_scale "
-            f"{tuple(x_scale.shape)}, w_scale {tuple(w_scale.shape)}")
+            f"{tuple(x_scale.shape)}")
+    if prepacked:
+        n = _unpack(x_q, w_q, w_scale, bias, bm, bn, bk, n_out)
+    elif (k != k2 or w_scale.shape != (n,)
+            or (bias is not None and bias.shape != (n,))):
+        raise ValueError(
+            f"int8_matmul: x {tuple(x_q.shape)}, w {tuple(w_q.shape)}, "
+            f"w_scale {tuple(w_scale.shape)}")
     if build.on_cpu(x_q, w_q, x_scale, w_scale, bias):
+        if prepacked:
+            w_q, w_scale = w_q[:k, :n], w_scale[:n]
+            bias = None if bias is None else bias[:n]
         out = int8_matmul_plain(x_q, w_q, x_scale, w_scale, bias, act,
                                 requant_scale)
         return out.to(out_dtype)
@@ -119,8 +160,8 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     rc = fn(build.ptr(x_q), build.ptr(w_q), build.ptr(x_scale),
             build.ptr(w_scale), build.ptr(bias), build.ptr(out),
-            build.ptr(scratch), m, k, n, _ACT_CODE[act], int(requant),
-            reciprocal_f32(requant_scale) if requant else 0.0,
+            build.ptr(scratch), m, k, n, w_q.shape[1], _ACT_CODE[act],
+            int(requant), reciprocal_f32(requant_scale) if requant else 0.0,
             build.stream(x_q))
     build.check(lib, rc, "int8_matmul")
     launches += 1

@@ -3,7 +3,10 @@
 Each wrapper takes its kernel's plain PyTorch version for CPU tensors and
 launches the hand-written CUDA kernel for CUDA tensors (raising if it
 cannot). The counters count CUDA launches only: a run reads them to show
-that its path went through the kernels.
+that its path went through the kernels. ``conv2d_int8`` and
+``conv2d_int8_cout_blocks`` count the int8 conv's two grids apart (the
+whole-Cout grid and the autotuner's channel-blocked one); ``conv2d`` is
+the fp32 conv.
 """
 from __future__ import annotations
 
@@ -15,16 +18,21 @@ from repro_torch.kernels import int8_matmul as _int8mm
 from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels import ssd as _ssd
 
-KERNEL_MODULES = {
-    "int8_matmul": _int8mm,
-    "conv2d_int8": _conv2d,
-    "quantize_apply": _quant,
-    "flash_attention": _flash,
-    "ssd": _ssd,
+# counter name -> (module, attribute holding its count)
+COUNTERS = {
+    "int8_matmul": (_int8mm, "launches"),
+    "conv2d_int8": (_conv2d, "launches"),
+    "conv2d_int8_cout_blocks": (_conv2d, "launches_cout_blocks"),
+    "conv2d": (_conv2d, "launches_f32"),
+    "quantize_apply": (_quant, "launches"),
+    "flash_attention": (_flash, "launches"),
+    "ssd": (_ssd, "launches"),
 }
 
 int8_matmul = _int8mm.int8_matmul
 conv2d_int8 = _conv2d.conv2d_int8
+conv2d = _conv2d.conv2d
+conv2d_plain = _conv2d.conv2d_plain
 quantize_apply = _quant.quantize_apply
 quantize = _quant.quantize
 
@@ -38,9 +46,10 @@ def ssd(x, B_, C_, dt, A, init_state=None, *, chunk: int = 256):
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)

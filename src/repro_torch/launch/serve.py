@@ -15,6 +15,15 @@ the compiled prefill ladder and per-rung decode programs over static int8
 KV slots, driven by the LM scheduler. ``--requests`` prompts of
 ``--tokens`` new tokens each share ``--slots`` KV slots.
 
+``--autotune`` (both modes) tunes each batch rung's kernel schedule at
+lowering and prepacks the int8 weights into tile-aligned arena buffers;
+``--tuning-cache PATH`` keeps the picks in a JSON file that a later run
+reads back without searching, and ``--autotune-measure`` times the top
+picks that launch different kernels on the card (the conv's channel
+blocking) and keeps the fastest; on the CPU nothing differs and nothing is
+timed. Tuned and untuned plans give bit-identical int8
+outputs.
+
 Runs on the card; ``--device cpu`` runs every kernel's plain PyTorch
 version on the CPU instead.
 
@@ -24,6 +33,9 @@ Usage::
         --model cnet_plus_scalar --backend accel --requests 48 --batch 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
         --backend accel --requests 8 --tokens 16 --slots 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode space \\
+        --model cnet_plus_scalar --backend accel --autotune \\
+        --tuning-cache tuning.json
 """
 from __future__ import annotations
 
@@ -53,6 +65,17 @@ KEEP_PREDICATES = {
     # VAE: everything downlinks (it IS the compressed product)
     "vae_encoder": lambda out: True,
 }
+
+
+def autotune_options(args) -> dict:
+    """The Engine's autotune keyword arguments from the launcher flags;
+    ``--tuning-cache``/``--autotune-measure`` without ``--autotune`` is a
+    usage error (they would be ignored silently otherwise)."""
+    if (args.tuning_cache or args.autotune_measure) and not args.autotune:
+        raise SystemExit("--tuning-cache/--autotune-measure configure the "
+                         "plan-time autotuner; pass --autotune to enable it")
+    return dict(autotune=args.autotune, tuning_cache=args.tuning_cache,
+                autotune_measure=args.autotune_measure)
 
 
 def build_scheduler(args) -> tuple:
@@ -85,6 +108,7 @@ def build_scheduler(args) -> tuple:
         raise SystemExit("--burst-j/--window-s configure the power "
                          "envelope; pass --power-budget and/or --peak-w "
                          "to enable it")
+    tune = autotune_options(args)
     sched = ContinuousBatchingScheduler(envelope=envelope, clock=args.clock,
                                         pipeline=args.pipeline,
                                         staging_buffers=args.staging_buffers)
@@ -97,7 +121,7 @@ def build_scheduler(args) -> tuple:
         m = SPACE_MODELS[name]
         graph = m.build_graph()
         engine = Engine(graph, m.init_params(1), fuse=not args.no_fuse,
-                        device=args.device)
+                        device=args.device, **tune)
         print(inspector.inspect(graph).summary())
         reqs = synthetic_requests(m, args.requests, seed=mi)
         if "accel" in backends:
@@ -139,8 +163,10 @@ def build_lm_scheduler(args, cfg=None) -> tuple:
     if backend not in BACKENDS:
         raise SystemExit(f"unknown backend {backend!r}; choose from "
                          f"{', '.join(BACKENDS)}")
+    tune = autotune_options(args)
     graph = lm_model.build_graph(cfg)
-    engine = Engine(graph, lm_model.init_params(0, cfg), device=args.device)
+    engine = Engine(graph, lm_model.init_params(0, cfg), device=args.device,
+                    **tune)
     if backend == "accel":
         rng = np.random.default_rng(1)
         engine.calibrate([lm_model.synthetic_input(rng, cfg)
@@ -217,6 +243,18 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-fuse", action="store_true",
                     help="skip the graph-compiler pass pipeline and serve "
                          "the op-by-op plans")
+    ap.add_argument("--autotune", action="store_true",
+                    help="plan-time kernel schedule search + prepacked "
+                         "weight arenas; off = the heuristic schedule "
+                         "(bit-identical outputs either way)")
+    ap.add_argument("--tuning-cache", default=None, metavar="PATH",
+                    help="JSON tuning-cache path: a warm cache skips all "
+                         "candidate evaluations across processes")
+    ap.add_argument("--autotune-measure", action="store_true",
+                    help="refine the autotuner's top-K picks by timing "
+                         "those that launch different kernels on the card "
+                         "(the conv's channel blocking); with --device cpu "
+                         "no pick differs and nothing is timed")
     return ap
 
 

@@ -14,6 +14,11 @@ they skip. This file imports nothing of the JAX reference, so it runs on
 the GPU machine:
 
     python -m pytest -m gpu tests/test_torch_*.py
+
+The autotuner's kernel variants (the channel-blocked int8 conv grid, a
+pre-padded input, prepacked matmul weights) are bit-exact to the plain
+versions; the fp32 conv is held to 1e-4, the reference's own tolerance
+for its fp32 conv kernel (tests/test_kernels.py).
 """
 import numpy as np
 import pytest
@@ -28,6 +33,7 @@ from repro_torch.kernels import int8_matmul as tmm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ssd as tssd
+from repro_torch.kernels.epilogue import pad_channel_params
 from repro_torch.models import cnet_plus_scalar as tcnet
 from repro_torch.models import lm as tlm
 
@@ -133,7 +139,8 @@ def test_card_engine_matches_cpu_engine(cuda_device, cpu_engine):
     kops.reset_launch_counts()
     got = card.run_batch(batch, "accel")["head"].cpu()
     assert kops.launch_counts() == {"int8_matmul": 2, "conv2d_int8": 3,
-                                    "quantize_apply": 0,
+                                    "conv2d_int8_cout_blocks": 0,
+                                    "conv2d": 0, "quantize_apply": 0,
                                     "flash_attention": 0, "ssd": 0}
     assert torch.equal(got, cpu_engine.run_batch(batch, "accel")["head"])
     torch.testing.assert_close(
@@ -300,3 +307,192 @@ def test_card_lm_engine_matches_cpu_engine(cuda_device):
     counts = kops.launch_counts()
     assert counts["flash_attention"] == 0 and counts["ssd"] == 0
     assert counts["int8_matmul"] == len(lm_g.plan.qplans)
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's kernel variants and the fp32 conv
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,bc,stride,padding,rows", [
+    (2, 9, 7, 3, 12, 8, 1, "SAME", 3),       # Cout not a multiple of bc
+    (2, 10, 10, 4, 9, 8, 2, "SAME", 3),
+    (3, 17, 33, 5, 20, 16, 2, "VALID", 4),
+    (16, 256, 256, 2, 48, 16, 1, "SAME", 256),   # CNet's tuned act0
+    (1, 32, 32, 128, 512, 64, 1, "SAME", 8)])    # too wide for one block
+@pytest.mark.parametrize("pre_padded", [False, True])
+@pytest.mark.parametrize("requant,bias", [(0.05, True), (None, False)])
+def test_conv2d_int8_cout_blocks_kernel_matches_plain(
+        cuda_device, b, h, w, cin, cout, bc, stride, padding, rows,
+        pre_padded, requant, bias):
+    g = torch.Generator().manual_seed(b + h + w + cin + cout)
+    x = torch.randint(-127, 128, (b, h, w, cin), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    ws = (torch.rand(cout, generator=g) * 0.01).to(cuda_device)
+    bb = torch.randn(cout, generator=g).to(cuda_device) if bias else None
+    kw = dict(x_scale=0.0377, stride=stride, padding=padding, act="relu",
+              requant_scale=requant, rows_per_block=rows, cout_per_block=bc)
+    if pre_padded:
+        # the arena's layout: channels padded to whole blocks, neutral
+        # scale/bias on the pad channels, the input staged at plan time
+        pad_c = -(-cout // bc) * bc - cout
+        wq = torch.nn.functional.pad(wq, (0, pad_c))
+        ws, bb = pad_channel_params(ws, bb, pad_c)
+        geom = tconv.conv_geometry(h, w, 3, 3, stride, padding, rows)
+        x = tconv.pad_input(x, geom)
+        kw.update(cout=cout, pre_padded=True, in_hw=(h, w))
+    before = (tconv.launches, tconv.launches_cout_blocks)
+    got = tconv.conv2d_int8(x, wq, ws, bb, **kw)
+    torch.cuda.synchronize()
+    assert (tconv.launches, tconv.launches_cout_blocks) == (
+        before[0], before[1] + 1)
+    want = tconv.conv2d_int8_plain(x, wq, ws, bb, **{
+        k: v for k, v in kw.items() if k != "cout_per_block"})
+    assert got.shape[-1] == cout
+    assert torch.equal(got, want)
+
+
+def test_conv2d_int8_whole_cout_pre_padded_matches_plain(cuda_device):
+    """The tuned act1/act2 path: the whole-Cout grid on an input staged at
+    rows_per_block 128 (more bottom rows than the kernel's row tile)."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(-127, 128, (4, 128, 128, 48), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    wq = torch.randint(-127, 128, (3, 3, 48, 48), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    ws = (torch.rand(48, generator=g) * 0.01).to(cuda_device)
+    bb = torch.randn(48, generator=g).to(cuda_device)
+    geom = tconv.conv_geometry(128, 128, 3, 3, 1, "SAME", 128)
+    xp = tconv.pad_input(x, geom)
+    kw = dict(x_scale=0.02, act="relu", requant_scale=0.0163)
+    before = tconv.launches
+    got = tconv.conv2d_int8(xp, wq, ws, bb, rows_per_block=128,
+                            pre_padded=True, in_hw=(128, 128), **kw)
+    torch.cuda.synchronize()
+    assert tconv.launches == before + 1
+    assert torch.equal(got, tconv.conv2d_int8_plain(x, wq, ws, bb, **kw))
+
+
+@pytest.mark.parametrize("m,k,kp,n,np_,bk,bn", [
+    (5, 70, 128, 13, 16, 128, 16),           # k < kp, n_out < np
+    (4, 50, 64, 10, 16, 64, 16),
+    (16, 32769, 33792, 92, 96, 1024, 96),    # CNet fc1, packed
+    (16, 92, 96, 1, 8, 96, 8)])              # CNet head, packed
+@pytest.mark.parametrize("act,requant", [("relu", REQUANT), (None, None)])
+def test_int8_matmul_prepacked_kernel_matches_plain(cuda_device, m, k, kp,
+                                                    n, np_, bk, bn, act,
+                                                    requant):
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    xs = torch.rand(m, generator=g) * 0.01 + 1e-3
+    ws = torch.rand(n, generator=g) * 0.01 + 1e-3
+    b = torch.randn(n, generator=g)
+    wp = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+    wsp, bp = pad_channel_params(ws, b, np_ - n)
+    dev = [v.to(cuda_device) for v in (x, wp, xs, wsp, bp)]
+    before = tmm.launches
+    got = tmm.int8_matmul(*dev, act=act, requant_scale=requant, bm=8,
+                          bn=bn, bk=bk, prepacked=True, n_out=n)
+    torch.cuda.synchronize()
+    assert tmm.launches == before + 1
+    want = tmm.int8_matmul_plain(*[v.to(cuda_device)
+                                   for v in (x, w, xs, ws, b)], act, requant)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,kh,stride,padding", [
+    (2, 16, 16, 3, 8, 3, 1, "SAME"), (2, 16, 16, 3, 8, 3, 2, "SAME"),
+    (2, 12, 20, 4, 16, 5, 1, "VALID"), (16, 128, 256, 3, 8, 3, 2, "SAME"),
+    (2, 9, 9, 2, 4, 3, 2, "VALID"), (2, 14, 18, 3, 8, 3, 2, "VALID"),
+    (4, 256, 256, 2, 48, 3, 1, "SAME"),
+    (1, 20, 20, 96, 150, 3, 1, "SAME")])     # several channel blocks
+@pytest.mark.parametrize("relu,bias", [(True, True), (False, False)])
+def test_conv2d_f32_kernel_matches_plain(cuda_device, b, h, w, cin, cout,
+                                         kh, stride, padding, relu, bias):
+    g = torch.Generator().manual_seed(h * 31 + w)
+    x = torch.randn((b, h, w, cin), generator=g).to(cuda_device)
+    wt = (torch.randn((kh, kh, cin, cout), generator=g) * 0.1).to(
+        cuda_device)
+    bb = (torch.randn(cout, generator=g) * 0.1).to(cuda_device) \
+        if bias else None
+    before = kops.launch_counts()["conv2d"]
+    got = kops.conv2d(x, wt, bb, stride=stride, padding=padding, relu=relu)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["conv2d"] == before + 1
+    want = kops.conv2d_plain(x, wt, bb, stride=stride, padding=padding,
+                             relu=relu)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_tensors_the_kernels_cannot_take_raise(cuda_device):
+    """No quiet fall back to the plain version: a CUDA operand set the
+    kernel cannot launch on raises before launching."""
+    before = kops.launch_counts()
+    x = torch.zeros((1, 32, 32, 128), dtype=torch.int8, device=cuda_device)
+    w = torch.zeros((3, 3, 128, 512), dtype=torch.int8, device=cuda_device)
+    ws = torch.ones(512, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        tconv.conv2d_int8(x, w, ws)         # whole-Cout: 590 KB of filter
+    with pytest.raises(ValueError, match="does not match geometry"):
+        tconv.conv2d_int8(x, w, ws, cout_per_block=64, pre_padded=True,
+                          in_hw=(32, 32))
+    xf = torch.zeros((1, 8, 8, 4096), device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        kops.conv2d(xf, torch.zeros((3, 3, 4096, 4), device=cuda_device))
+    xq = torch.zeros((4, 70), dtype=torch.int8, device=cuda_device)
+    wp = torch.zeros((128, 20), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="prepacked"):
+        tmm.int8_matmul(xq, wp, torch.ones(4, device=cuda_device),
+                        torch.ones(20, device=cuda_device), bn=16, bk=128,
+                        prepacked=True, n_out=13)
+    torch.cuda.synchronize()
+    assert kops.launch_counts() == before
+
+
+def test_card_autotuned_engine_matches_cpu_engine(cuda_device):
+    """A CNet with the published 256x256x2 -> 48 stem, autotuned on the
+    card (act0 takes the channel-blocked grid), against the untuned CPU
+    engine: bit-exact, one channel-blocked launch per dispatch."""
+    widths = dict(input_shape=(256, 256, 2), channels=(48, 8, 4), dense=12)
+    g = tcnet.build_graph(**widths)
+    cpu = Engine(g, tcnet.init_params(3, **widths), device="cpu")
+    rng = np.random.default_rng(3)
+    cpu.calibrate([tcnet.synthetic_input(rng, widths["input_shape"])
+                   for _ in range(2)])
+    card = Engine(g, cpu.params, device=cuda_device, autotune=True)
+    card.share_calibration(cpu)
+    batch = tcnet.synthetic_batch(np.random.default_rng(7), 4,
+                                  widths["input_shape"])
+    card.compile("accel", 4)
+    kops.reset_launch_counts()
+    got = card.run_batch(batch, "accel")["head"].cpu()
+    counts = kops.launch_counts()
+    assert counts["conv2d_int8_cout_blocks"] == 1, counts
+    assert counts["conv2d_int8"] == 2 and counts["int8_matmul"] == 2, counts
+    assert card.planned("accel")._tuning[4]["act0"].config.cout_per_block
+    assert torch.equal(got, cpu.run_batch(batch, "accel")["head"])
+
+
+def test_measured_refinement_times_distinct_launches_on_the_card(
+        cuda_device):
+    """The opt-in measured refinement on the card: it times one candidate
+    per channel blocking (the only setting that changes the conv launch),
+    skips the whole-Cout candidate the wrapper refuses (3x3x128 -> 512
+    needs 590 KB of filter), and never times the matmul's candidates,
+    whose launches are all the same."""
+    from repro_torch.core import autotune as tat
+    from repro_torch.core import energy as tenergy
+    hw = tenergy.BACKEND_HW["accel"]
+    tuner = tat.Autotuner(tat.TuningCache(None), measure=True,
+                          measure_repeats=1)
+    assert tuner.device.type == "cuda"
+    dec = tuner._search("int8_conv", (1, 32, 32, 128, 3, 3, 512, 1, "SAME"),
+                        hw, True, None)
+    assert dec.source == "measured" and dec.config.cout_per_block
+    assert 1 <= tuner.stats["measured"] <= tuner.measure_top_k
+    n = tuner.stats["measured"]
+    dec = tuner._search("int8_dense", (16, 32769, 92), hw, True, None)
+    assert dec.source == "model" and tuner.stats["measured"] == n

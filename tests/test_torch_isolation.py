@@ -108,7 +108,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fault-rate", "1"], ["--radiation", "orbit"], ["--autotune"],
+    ["--fault-rate", "1"], ["--radiation", "orbit"], ["--protection", "tmr"],
     ["--checkpoint", "x.npz"], ["--lm-legacy"], ["--trace-demo"],
     ["--arch", "tinyllama-1.1b"], ["--kv8"], ["--w8"]])
 def test_launcher_refuses_unported_flags(flag, capsys):

@@ -256,8 +256,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     tops.flash_attention(q, q[:, :, :1], q[:, :, :1])
     tops.ssd(torch.randn(1, 6, 2, 4), torch.randn(1, 6, 3),
              torch.randn(1, 6, 3), torch.rand(1, 6, 2), -torch.rand(2))
+    tops.conv2d_int8(torch.zeros((1, 4, 4, 2), dtype=torch.int8),
+                     torch.zeros((3, 3, 2, 20), dtype=torch.int8),
+                     torch.ones(20), cout_per_block=8)
+    tops.conv2d(torch.zeros((1, 4, 4, 2)), torch.zeros((3, 3, 2, 5)))
     assert tops.launch_counts() == {"int8_matmul": 0, "conv2d_int8": 0,
-                                    "quantize_apply": 0,
+                                    "conv2d_int8_cout_blocks": 0,
+                                    "conv2d": 0, "quantize_apply": 0,
                                     "flash_attention": 0, "ssd": 0}
 
 
