@@ -27,6 +27,16 @@ Besides the kernels those paths run, the fp32 ``conv2d`` (on no served
 path, as in the reference) is held against its plain version and timed
 beside cuDNN's convolution.
 
+``int8_matmul`` has two CUDA kernels, chosen by shape
+(``kernels/int8_matmul.py: route``): each shape is timed on the kernel
+its route picks, each kernel has its own record in the kernels line
+(``int8_matmul:tile``, ``int8_matmul:splitk``), small-M shapes are timed
+on both kernels by the profiler's device clock beside the rule's choice,
+and the served paths assert the per-kernel counts (a prefill's
+projections all take the tensor-core tile kernel, CNet's dense layers the
+split-K kernel). ``flash_attention`` is bounded by the arithmetic of its
+3xTF32 design at the dense TF32 rate.
+
 The launch counters show that each path ran its kernels (counts are set
 to 0 just before a path is driven and read just after); a profiler pass
 breaks each path's device time down by kernel. Any failed phase makes the
@@ -37,6 +47,7 @@ nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -53,6 +64,7 @@ SRC = HERE / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_INT8_OPS_S = 1979e12
 PEAK_FP32_OPS_S = 67e12
+PEAK_TF32_OPS_S = 495e12
 
 BATCH = 16
 LADDER_TOP = 16
@@ -71,7 +83,8 @@ LM_KERNELS = ("int8_matmul", "quantize_apply", "flash_attention", "ssd")
 TUNED_CNN_KERNELS = ("int8_matmul", "conv2d_int8", "conv2d_int8_cout_blocks",
                      "quantize_apply")
 TUNED_LM_KERNELS = ("int8_matmul", "flash_attention", "ssd")
-# every pallas_call of the reference has one record in the kernels line
+# every pallas_call of the reference has a record in the kernels line
+# (int8_matmul one for each of its two CUDA kernels)
 TPU_KERNELS = {
     "int8_matmul": "src/repro/kernels/int8_matmul.py:136",
     "quantize_apply": "src/repro/kernels/quantize.py:49",
@@ -172,6 +185,15 @@ def device_rows(torch, prof):
     return sorted(rows, reverse=True)
 
 
+def counts_with_routes(ops):
+    """The launch counters, plus int8_matmul's launches by kernel under
+    ``int8_matmul:tile`` and ``int8_matmul:splitk``."""
+    counts = ops.launch_counts()
+    counts.update({f"int8_matmul:{k}": v
+                   for k, v in ops.route_counts().items()})
+    return counts
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -229,12 +251,13 @@ def _print_case(c):
           f"({c['bound_by']}) max_abs_err={c['err']}")
 
 
-@phase("int8_matmul vs plain (CNet fc1 and head at B=16; the LM's emb, "
-       "prefill head at B=4 x 2048 positions and decode head at 4 lanes; "
-       "prepacked: fc1 and head in their tuned layouts, the LM head at one "
-       "prompt)")
+@phase("int8_matmul vs plain, each shape on the kernel its route picks "
+       "(CNet fc1 and head at B=16; the LM's prefill projections at B=4 x "
+       "2048 positions and decode head at 4 lanes; prepacked: fc1 and head "
+       "in their tuned layouts, the LM head at one prompt)")
 def matmul_phase(torch, gen, flush):
     from repro_torch.kernels import int8_matmul as mm
+    from repro_torch.kernels import ops
     from repro_torch.kernels.epilogue import pad_channel_params
     dev = "cuda"
     cases = []
@@ -246,6 +269,9 @@ def matmul_phase(torch, gen, flush):
             (BATCH, 32769, 92, "relu", 0.0123456789, None),
             (BATCH, 92, 1, None, None, None),
             (4 * 2048, 2048, 2048, None, 0.0153, None),
+            (4 * 2048, 2048, 4096, None, None, None),
+            (4 * 2048, 2048, 64, "sigmoid", None, None),
+            (4 * 2048, 4096, 2048, None, None, None),
             (4 * 2048, 2048, 32000, None, None, None),
             (LM_SLOTS, 2048, 32000, None, None, None),
             (BATCH, 32769, 92, "relu", 0.0123456789, (1024, 96)),
@@ -268,11 +294,17 @@ def matmul_phase(torch, gen, flush):
             wk = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
             wsk, bk_ = pad_channel_params(ws, b, np_ - n)
             tiles = dict(bm=BATCH, bn=bn, bk=bk, prepacked=True, n_out=n)
+        which = mm.route(m, k, n)
+        before = dict(ops.route_counts())
         out = mm.int8_matmul(x, wk, xs, wsk, bk_, act=act, requant_scale=rq,
                              **tiles)
         torch.cuda.synchronize()
+        assert ops.route_counts()[which] == before[which] + 1, which
         ref = mm.int8_matmul_plain(x, w, xs, ws, b, act, rq)
-        err = exact(torch, out, ref)
+        if act == "sigmoid":    # library expf may differ by an ulp
+            err = close(torch, out, ref, 1e-6)
+        else:
+            err = exact(torch, out, ref)
         t = device_ms(torch, lambda: mm.int8_matmul(
             x, wk, xs, wsk, bk_, act=act, requant_scale=rq, **tiles),
             10 if big else 50, flush)
@@ -297,13 +329,96 @@ def matmul_phase(torch, gen, flush):
                   f" prepacked [{wk.shape[0]},{wk.shape[1]}] (bk={layout[0]}"
                   f", bn={layout[1]})")
         cases.append(dict(shape=f"[{m},{k}]x[{k},{n}] act={act} requant="
-                          f"{rq is not None}{packed}", err=err, ms=t,
+                          f"{rq is not None}{packed} route={which}",
+                          route=which, err=err, ms=t,
                           plain_ms=tp, library_ms=tl, bound_ms=bms,
                           bound_by=by))
         _print_case(cases[-1])
-    print("   library_ms: torch._int_mm on [17+,K8]x[K8,N8], the matmul only")
-    return _kernel_record("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
-                          TPU_KERNELS["int8_matmul"], cases)
+    print("   library_ms: torch._int_mm on [17+,K8]x[K8,N8], the matmul only; "
+          "sigmoid held at rtol 1e-6, the rest bit-exact")
+    # one TPU kernel, two CUDA kernels chosen by shape (kernels/
+    # int8_matmul.py: route): one record each, named as the route counters
+    return [_kernel_record(f"int8_matmul:{r}", f"src/repro_torch/csrc/{src}",
+                           TPU_KERNELS["int8_matmul"],
+                           [c for c in cases if c["route"] == r])
+            for r, src in (("tile", "int8_matmul_tile.cu"),
+                           ("splitk", "int8_matmul.cu"))]
+
+
+@contextlib.contextmanager
+def forced_route(mm, which):
+    """Serve int8_matmul on ``which`` whatever the shape rule says."""
+    rule = mm.route
+    mm.route = lambda m, k, n: which
+    try:
+        yield
+    finally:
+        mm.route = rule
+
+
+def per_call_device_us(torch, calls):
+    """Device time per call in us (torch.profiler: every device event the
+    calls launch, split-K's scratch fill included), each call once; the
+    host's launch work between calls is not counted. None when the
+    profiler recorded no device time (the tracer, not the port)."""
+    from torch.profiler import ProfilerActivity, profile
+    calls[0]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for c in calls:
+            c()
+        torch.cuda.synchronize()
+    rows = device_rows(torch, prof)
+    return sum(r[0] for r in rows) / len(calls) if rows else None
+
+
+@phase("int8_matmul route rule: device time of both kernels at small M "
+       "(the LM's projections at M = 1, 4, 16, 32, 64; CNet's fc1 and "
+       "head at B=16)")
+def route_phase(torch, gen, flush):
+    """Both CUDA kernels on the same operands, timed by the profiler's
+    device clock (the event-timed ``ms`` of a ~0.05 ms call is mostly host
+    work). Each call reads its own copy of the weights, as many copies as
+    fill 128 MB (16 at least, 1024 at most), so the weights come from HBM
+    as in a served step, where the other layers' weights evict them."""
+    from repro_torch.kernels import int8_matmul as mm
+    dev = "cuda"
+    widths = ((2048, 2048), (2048, 4096), (4096, 2048), (2048, 64),
+              (2048, 32000))
+    shapes = ([(m, k, n) for m in (1, LM_SLOTS, 16, 32, 64)
+               for k, n in widths]
+              + [(BATCH, 32769, 92), (BATCH, 92, 1)])
+    agree = measured = 0
+    for m, k, n in shapes:
+        copies = max(16, min(1024, -(-(128 << 20) // (k * n))))
+        x = torch.randint(-127, 128, (m, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+        w = torch.randint(-127, 128, (k, n), generator=gen,
+                          dtype=torch.int8).to(dev)
+        w_copies = w.expand(copies, k, n).contiguous()
+        xs, ws = torch.ones(m, device=dev), torch.ones(n, device=dev)
+        us = {}
+        for r in ("tile", "splitk"):
+            flush.zero_()
+            with forced_route(mm, r):
+                us[r] = per_call_device_us(torch, [
+                    (lambda wi=wi: mm.int8_matmul(x, wi, xs, ws))
+                    for wi in w_copies])
+        del w_copies
+        rule = mm.route(m, k, n)
+        if None in us.values():
+            print(f"   [{m},{k}]x[{k},{n}]: the profiler recorded no device "
+                  f"time: not measured; rule {rule}")
+            continue
+        faster = min(us, key=us.get)
+        agree += rule == faster
+        measured += 1
+        print(f"   [{m},{k}]x[{k},{n}]: tile {us['tile']:.2f} us, splitk "
+              f"{us['splitk']:.2f} us per call (device, {copies} weight "
+              f"copies); rule {rule}, faster {faster}")
+    print(f"   the rule picks the faster kernel at {agree} of the {measured} "
+          f"shapes measured ({len(shapes)} tried)")
 
 
 @phase("conv2d_int8 vs plain (conv0/1/2 at B=16)")
@@ -516,14 +631,20 @@ def flash_phase(torch, gen, flush):
         pairs = _causal_pairs(sq, sk) if causal else sq * sk
         ops = 4.0 * b * hq * pairs * hd            # QK^T and PV
         nbytes = 4 * (2 * b * sq * hq * hd + 2 * b * sk * hkv * hd)
-        bms, by = bound_ms(nbytes, ops, PEAK_FP32_OPS_S)
+        # the kernel's design does each product three times (3xTF32) on
+        # the tensor cores: that arithmetic at the dense TF32 rate
+        bms, by = bound_ms(nbytes, 3.0 * ops, PEAK_TF32_OPS_S)
+        simt, _ = bound_ms(nbytes, ops, PEAK_FP32_OPS_S)
         cases.append(dict(shape=f"B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} "
                           f"hd={hd} causal={causal}", err=err, ms=t,
                           plain_ms=tp, library_ms=tl, bound_ms=bms,
                           bound_by=by))
         _print_case(cases[-1])
-        print(f"     {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+        print(f"     {ops / 1e9:.2f} GFLOP ({3 * ops / 1e9:.2f} as 3xTF32), "
+              f"{nbytes / 1e6:.1f} MB; for information, the plain fp32 "
+              f"SIMT bound: {simt:.4f} ms")
     print("   tolerance 2e-5 (abs and rel) against the plain version; "
+          "bound: 3 x the products at 495 TFLOP/s dense TF32; "
           "library_ms: F.scaled_dot_product_attention fp32 on [B,H,S,hd]")
     return _kernel_record("flash_attention",
                           "src/repro_torch/csrc/flash_attention.cu",
@@ -647,7 +768,7 @@ def serve_phase(torch):
     setup = time.perf_counter() - t0
     t0 = time.perf_counter()
     sched.serve_trace(trace)
-    counts = ops.launch_counts()
+    counts = counts_with_routes(ops)
     wall = time.perf_counter() - t0
     tel = sched.telemetry()["cnet_plus_scalar"]
     print(sched.summary())
@@ -662,6 +783,8 @@ def serve_phase(torch):
     assert counts["quantize_apply"] == 5, counts
     assert counts["conv2d_int8"] == 3 * (n_warm + n_disp), counts
     assert counts["int8_matmul"] == 2 * (n_warm + n_disp), counts
+    # fc1 and the head (M <= 16) take the split-K kernel
+    assert counts["int8_matmul:splitk"] == counts["int8_matmul"], counts
     # request ids are assigned in arrival order
     inputs = [r for _, _, r in sorted(trace, key=lambda e: e[0])]
     return sched, engines["cnet_plus_scalar"], counts, inputs
@@ -694,6 +817,7 @@ def reference_phase(torch, sched, card_engine, inputs):
 @phase("main path: serve the LM block at zamba2-1.2b widths on accel "
        "through the LM scheduler")
 def lm_serve_phase(torch):
+    from repro_torch.kernels import int8_matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import lm as lm_model
@@ -705,7 +829,7 @@ def lm_serve_phase(torch):
     t0 = time.perf_counter()
     sched, lm = serve.build_lm_scheduler(args, lm_model.ZAMBA2_1_2B)
     setup = time.perf_counter() - t0
-    calib = ops.launch_counts()
+    calib = counts_with_routes(ops)
     print(f"   setup (weights, calibration on 8 windows, engine) {setup:.2f} "
           f"s; launches in calibration: {calib}")
     n_q = len(lm.plan.qplans)
@@ -716,16 +840,16 @@ def lm_serve_phase(torch):
     steps = []
     t0 = time.perf_counter()
     while True:
-        before = ops.launch_counts()
+        before = counts_with_routes(ops)
         traces = lm.n_traces
         if not sched.step():
             break
-        after = ops.launch_counts()
+        after = counts_with_routes(ops)
         kind = sched.events[-1].phase       # 'prefill' | 'decode'
         steps.append((kind, {k: after[k] - before[k] for k in after},
                       traces, lm.n_traces))
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = counts_with_routes(ops)
     tel = sched.telemetry()
     print(sched.summary())
     pre = [d for k, d, _, _ in steps if k == "prefill"]
@@ -741,12 +865,19 @@ def lm_serve_phase(torch):
     assert tel.n_completed == LM_REQUESTS, tel.n_completed
     assert all(len(c.tokens) == LM_TOKENS for c in sched.completions)
     assert lm.slots.in_use == 0
+    # a prefill's projections (M = rung x 2048) all take the tile kernel;
+    # a decode step's (M = rung <= LM_SLOTS) take the kernel the rule
+    # gives at that M, which no rung <= LM_SLOTS changes
+    dec_tile = sum(mm.route(LM_SLOTS, *qp.w_q.shape)
+                   == "tile" for qp in lm.plan.qplans.values())
     for d in pre:
         assert d["flash_attention"] == 1 and d["ssd"] == 1, d
-        assert d["int8_matmul"] == n_q, d
+        assert d["int8_matmul"] == d["int8_matmul:tile"] == n_q, d
     for d in dec:
         assert d["flash_attention"] == 0 and d["ssd"] == 0, d
         assert d["int8_matmul"] == n_q, d
+        assert d["int8_matmul:tile"] == dec_tile, d
+        assert d["int8_matmul:splitk"] == n_q - dec_tile, d
     late = [(t0_, t1_) for k, _, t0_, t1_ in steps if k == "decode"]
     late = late[len(late) // 2:]
     assert all(t0_ == t1_ for t0_, t1_ in late), late
@@ -899,7 +1030,7 @@ def tuned_serve_phase(torch, sched0, cache_path):
     setup = time.perf_counter() - t0
     t0 = time.perf_counter()
     sched.serve_trace(trace)
-    counts = ops.launch_counts()
+    counts = counts_with_routes(ops)
     wall = time.perf_counter() - t0
     engine = engines["cnet_plus_scalar"]
     tel = sched.telemetry()["cnet_plus_scalar"]
@@ -919,6 +1050,7 @@ def tuned_serve_phase(torch, sched0, cache_path):
     assert counts["conv2d_int8_cout_blocks"] == n, counts
     assert counts["conv2d_int8"] == 2 * n, counts
     assert counts["int8_matmul"] == 2 * n, counts
+    assert counts["int8_matmul:splitk"] == 2 * n, counts
     assert counts["quantize_apply"] == 5, counts
     assert plan.packed["act0"].cout_per_block == 16, plan.packed["act0"]
     assert (plan.packed["fc1_act"].bk, plan.packed["fc1_act"].bn) == \
@@ -997,7 +1129,7 @@ def _lm_steps(torch, lm, x, feed):
         hidden = feed[i] if feed is not None else results[-1].hidden
         results.append(lm.decode_step(hidden, slot))
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = counts_with_routes(ops)
     return [(r, _head_logits(torch, lm, r.hidden)) for r in results], counts
 
 
@@ -1031,6 +1163,9 @@ def lm_tuned_phase(torch, lm):
     n_q = len(plan.qplans)
     assert counts["flash_attention"] == 1 and counts["ssd"] == 1, counts
     assert counts["int8_matmul"] == n_q * (1 + LM_REF_STEPS), counts
+    # the prefill's packed projections (M = 2048, ldw = np) take the tile
+    # kernel
+    assert counts["int8_matmul:tile"] >= n_q, counts
     assert plan.packed and all(plan.weight_arena[n] is plan.packed[n].w_q
                                for n in plan.qplans)
     for w in ("k_codes", "k_scale", "v_codes", "v_scale"):
@@ -1081,8 +1216,11 @@ def main() -> int:
         for ph in (matmul_phase, conv_phase, conv_blocks_phase,
                    quantize_phase, flash_phase, ssd_phase, conv_f32_phase):
             rec = ph(torch, gen, flush)
-            if rec is not None:
+            if isinstance(rec, list):
+                records.extend(rec)
+            elif rec is not None:
                 records.append(rec)
+        route_phase(torch, gen, flush)
         del flush
         torch.cuda.empty_cache()
         paths = {}                      # served path -> its launch counts
@@ -1123,9 +1261,10 @@ def main() -> int:
                             for n in names if counts[n] == 0)
         for rec in records:
             rec["launches"] = sum(c[rec["name"]] for _, c in paths.values())
-    if sorted(r["name"] for r in records) != sorted(TPU_KERNELS):
-        FAILURES.append(f"kernel records missing: {len(records)} of "
-                        f"{len(TPU_KERNELS)}")
+    covered = {r["replaces"] for r in records}
+    if covered != set(TPU_KERNELS.values()):
+        FAILURES.append(f"kernel records cover {len(covered)} of the "
+                        f"{len(TPU_KERNELS)} TPU kernels")
     print(json.dumps({"kernels": records}), flush=True)
     print(gpu_line(), flush=True)
     if FAILURES:

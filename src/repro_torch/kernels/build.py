@@ -34,6 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = {
     "quantize_apply": "quantize.cu",
     "int8_matmul": "int8_matmul.cu",
+    "int8_matmul_tile": "int8_matmul_tile.cu",
     "conv2d_int8": "conv2d_int8.cu",
     "conv2d_f32": "conv2d_f32.cu",
     "flash_attention": "flash_attention.cu",

@@ -3,10 +3,17 @@ attention), fp32.
 
 Replaces the Pallas kernel ``flash_attention`` (src/repro/kernels/
 flash_attention.py, ``_kernel``) with ``csrc/flash_attention.cu``: one
-block per (64-row query tile, head, batch) walks the K/V tiles in a loop
-that takes the place of the TPU's sequential grid axis, keeping the
-running max, sum and accumulator in registers. At the served shape the
-work is bound by the fp32 rate, not by memory (see the source's note).
+block of 8 warps per (128-row query tile, head, batch) walks the K/V tiles
+(double-buffered, fetched with ``cp.async``) in a loop that takes the
+place of the TPU's sequential grid axis, keeping the running max, sum and
+accumulator in registers. Both products run on
+the tensor cores (``mma.sync`` m16n8k8 TF32) as a 3xTF32 split: each
+operand is ``big + small`` with ``big`` = x truncated to TF32 and ``small
+= x - big``, and ``a*b ~ small_a*big_b + big_a*small_b + big_a*big_b``,
+which keeps fp32 accuracy (TF32 alone does not hold the port's 2e-5;
+``tests/test_torch_tf32x3.py`` emulates both on the CPU). At the served
+shape the work is bound by that arithmetic, not by memory (see the
+source's note).
 
 Semantics, shared by the kernel and :func:`flash_attention_plain`: scores
 ``(q . k) * hd**-0.5``; causal masking keeps ``qpos >= kpos`` with both

@@ -2,26 +2,50 @@
 analog's dense engine).
 
 Replaces the Pallas kernel ``int8_matmul`` (src/repro/kernels/int8_matmul.py,
-``_kernel``) with ``csrc/int8_matmul.cu``. On the served shapes (a batch of
-M <= 32 rows against fc1's [32769, 92] weights) the product is bound by
-reading the weight matrix once from device memory; the arithmetic is far
-below the card's int8 rate. The TPU kernel carried its accumulator over a
-sequential K grid axis; the CUDA kernel splits K across blocks instead,
-adds int32 partials atomically (exact, order-free), and the last block of
-each output tile applies the epilogue, so a layer is still one launch.
-The LM's per-position projections fold batch x positions into M (8192 at
-a B=4 prefill), where this design is far from its bound; indices into
-[M, N] are 64-bit, and M is capped by the grid (``MAX_GRID_Z`` row tiles).
+``_kernel``) with two hand-written CUDA kernels that compute the same
+function, and :func:`route` chooses between them by shape:
+
+* **split-K** (``csrc/int8_matmul.cu``), for a small batch M against a long
+  K (CNet's fc1: [16, 32769] x [32769, 92]), where the product is bound by
+  reading the weights once: K is split across blocks, int32 partials are
+  added atomically (exact, order-free) into a zeroed scratch, and the last
+  block of each output tile applies the epilogue. M / 16 row tiles ride on
+  ``gridDim.z``, so M is capped at ``ROWS_PER_BLOCK * MAX_GRID_Z``.
+* **tile** (``csrc/int8_matmul_tile.cu``), for the LM's per-position
+  projections, which fold batch x positions into M (8192 at a B=4
+  prefill) and are bound by the int8 tensor-core rate: one block of two
+  warpgroups per 128 x 128 output tile runs ``wgmma`` m64n128k32 with the
+  int32 sums in registers (no atomics, no scratch; for N <= 64 one
+  warpgroup per 64 x 64 tile). Each weight tile is copied as it lies and
+  transposed to K-major in shared memory, so the plan's one live copy of
+  each weight is read in place. Output tiles lie on ``gridDim.x`` (at most
+  2^31 - 1).
+
+The rule (:func:`route`), set from both kernels' device times at small M
+(``chip_smoke.py``'s route phase): K below one 32-deep ``wgmma`` step
+takes split-K; above that, M over ``SPLITK_MAX_M`` (32: CNet's batches and
+the LM's decode lanes are at most that) takes the tile kernel. At M <= 32
+the tile kernel runs one row tile, and its time grows with K (each block
+walks all of K) while split-K's spreads K over blocks, so the tile kernel
+takes K up to ``SMALL_M_TILE_MAX_K`` (2048: the LM's decode projections
+but down_proj) with N at least one 64-column tile; CNet's fc1 (K = 32769)
+and one-column head keep split-K. Row strides and bases that are not
+16-byte aligned do not change the route: the tile kernel then stages
+through byte loads instead of vector loads. Either kernel indexes [M, N]
+in 64-bit.
 
 Prepacked weights (``prepacked=True``, the autotuner's arena) arrive as
 [kp, np] zero-padded to whole (bk, bn) tiles with ``w_scale``/``bias`` at
-length np; the kernel reads them in place with row stride np, loops over
-x's logical K and writes only ``n_out`` columns, so the result equals the
+length np; both kernels read them in place with row stride np, loop over
+x's logical K and write only ``n_out`` columns, so the result equals the
 unpacked product bit for bit.
 
 Epilogue: ``fma((f32(acc) * x_scale[m]), w_scale[n], bias[n])`` (one
 rounding for the bias add, as the reference's backend computes it), then
 relu/sigmoid, then the optional requantize ``clip(rint(x * (1/s)))``.
+
+Counters: ``launches`` counts every CUDA launch; ``launches_tile`` and
+``launches_splitk`` count each kernel's share of them.
 """
 from __future__ import annotations
 
@@ -35,15 +59,38 @@ from repro_torch.kernels.epilogue import (apply_epilogue, dequant_bias,
                                           normalize_act, out_dtype_for,
                                           reciprocal_f32)
 
-# launches of the CUDA kernel (the plain version does not count)
+# launches of the CUDA kernels (the plain version does not count), in all
+# and by route
 launches = 0
+launches_tile = 0
+launches_splitk = 0
 
-ROWS_PER_BLOCK = 16             # the kernel's row tile (kMT)
+ROWS_PER_BLOCK = 16             # the split-K kernel's row tile (kMT)
 MAX_GRID_Z = 65535              # CUDA's gridDim.z cap: row tiles per launch
+TILE_M = TILE_N = 128           # the tile kernel's output tile (N > 64)
+MAX_GRID_X = 2 ** 31 - 1        # CUDA's gridDim.x cap: tiles per launch
+TILE_MIN_K = 32                 # one wgmma K step: less takes split-K
+SPLITK_MAX_M = 32               # larger M takes the tile kernel, and so
+SMALL_M_TILE_MAX_K = 2048       # does smaller M with K at most this
+SMALL_M_TILE_MIN_N = 64         # and N at least this
 
 _ACT_CODE = {None: 0, "relu": 1, "sigmoid": 2}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
+_TILE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                  + [ctypes.c_float, ctypes.c_void_p])
+
+
+def route(m: int, k: int, n: int) -> str:
+    """The kernel that serves an [m, k] x [k, n] product: ``"tile"``
+    (tensor cores) when k >= ``TILE_MIN_K`` and either m >
+    ``SPLITK_MAX_M``, or k <= ``SMALL_M_TILE_MAX_K`` and n >=
+    ``SMALL_M_TILE_MIN_N``; else ``"splitk"``. The weights' row stride
+    does not decide it: the tile kernel takes any stride (byte loads where
+    one is not aligned)."""
+    small_m_tile = k <= SMALL_M_TILE_MAX_K and n >= SMALL_M_TILE_MIN_N
+    return ("tile" if k >= TILE_MIN_K and (m > SPLITK_MAX_M or small_m_tile)
+            else "splitk")
 
 
 def _aligned_block(dim: int, target: int) -> int:
@@ -57,8 +104,9 @@ def _aligned_block(dim: int, target: int) -> int:
 def heuristic_blocks(m: int, k: int, n: int,
                      bm: int = 128, bn: int = 128, bk: int = 128):
     """The reference's default block choice for an [M, K] x [K, N] matmul,
-    kept for the autotuner's candidate pools (the CUDA kernel's own tile
-    is fixed: 16 rows x 128 columns x 128-deep K chunks)."""
+    kept for the autotuner's candidate pools (the CUDA kernels' own tiles
+    are fixed: split-K 16 rows x 128 columns x 128-deep K chunks, tile
+    128 x 128 x 128-deep K stages)."""
     return (min(bm, _aligned_block(m, bm)),
             min(bn, _aligned_block(n, bn)),
             min(bk, _aligned_block(k, bk)))
@@ -112,7 +160,7 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     buffer (scales and bias at length np) and the result is [M, n_out].
     ``bm``/``bn``/``bk`` are the reference's block sizes: ``bn``/``bk``
     fix the packed layout that is checked here, and none of them changes
-    the CUDA kernel's own tile (16 rows x 128 columns x 128-deep K)."""
+    the CUDA kernels' own tiles: :func:`route` picks the kernel by shape."""
     act = normalize_act(relu, act)
     out_dtype = out_dtype_for(requant_scale, out_dtype)
     m, k = x_q.shape
@@ -137,12 +185,19 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
         out = int8_matmul_plain(x_q, w_q, x_scale, w_scale, bias, act,
                                 requant_scale)
         return out.to(out_dtype)
-    global launches
-    if -(-m // ROWS_PER_BLOCK) > MAX_GRID_Z:
+    global launches, launches_tile, launches_splitk
+    ldw = w_q.shape[1]
+    which = route(m, k, n)
+    if which == "splitk" and -(-m // ROWS_PER_BLOCK) > MAX_GRID_Z:
         raise ValueError(
             f"int8_matmul: M={m} needs {-(-m // ROWS_PER_BLOCK)} row tiles "
             f"of {ROWS_PER_BLOCK}; one launch takes at most {MAX_GRID_Z} "
             f"(M <= {ROWS_PER_BLOCK * MAX_GRID_Z})")
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    if which == "tile" and tiles > MAX_GRID_X:
+        raise ValueError(
+            f"int8_matmul: [{m}, {n}] needs {tiles} output tiles of "
+            f"{TILE_M} x {TILE_N}; one launch takes at most {MAX_GRID_X}")
     x_q, w_q = x_q.contiguous(), w_q.contiguous()
     x_scale = x_scale.float().contiguous()
     w_scale = w_scale.float().contiguous()
@@ -151,18 +206,31 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     requant = requant_scale is not None
     out = torch.empty((m, n), device=x_q.device,
                       dtype=torch.int8 if requant else torch.float32)
-    lib = build.library("int8_matmul")
-    lib.int8_matmul_scratch_words.restype = ctypes.c_longlong
-    lib.int8_matmul_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
-    scratch = torch.zeros(lib.int8_matmul_scratch_words(m, n),
-                          dtype=torch.int32, device=x_q.device)
-    fn = lib.int8_matmul
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(build.ptr(x_q), build.ptr(w_q), build.ptr(x_scale),
-            build.ptr(w_scale), build.ptr(bias), build.ptr(out),
-            build.ptr(scratch), m, k, n, w_q.shape[1], _ACT_CODE[act],
-            int(requant), reciprocal_f32(requant_scale) if requant else 0.0,
+    tail = (_ACT_CODE[act], int(requant),
+            reciprocal_f32(requant_scale) if requant else 0.0,
             build.stream(x_q))
-    build.check(lib, rc, "int8_matmul")
+    if which == "tile":
+        lib = build.library("int8_matmul_tile")
+        fn = lib.int8_matmul_tile
+        fn.argtypes, fn.restype = _TILE_ARGTYPES, ctypes.c_int
+        rc = fn(build.ptr(x_q), build.ptr(w_q), build.ptr(x_scale),
+                build.ptr(w_scale), build.ptr(bias), build.ptr(out), m, k, n,
+                ldw, *tail)
+        build.check(lib, rc, "int8_matmul (tile)")
+        launches_tile += 1
+    else:
+        lib = build.library("int8_matmul")
+        lib.int8_matmul_scratch_words.restype = ctypes.c_longlong
+        lib.int8_matmul_scratch_words.argtypes = [ctypes.c_int,
+                                                  ctypes.c_int]
+        scratch = torch.zeros(lib.int8_matmul_scratch_words(m, n),
+                              dtype=torch.int32, device=x_q.device)
+        fn = lib.int8_matmul
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        rc = fn(build.ptr(x_q), build.ptr(w_q), build.ptr(x_scale),
+                build.ptr(w_scale), build.ptr(bias), build.ptr(out),
+                build.ptr(scratch), m, k, n, ldw, *tail)
+        build.check(lib, rc, "int8_matmul (split-K)")
+        launches_splitk += 1
     launches += 1
     return out if out.dtype == out_dtype else out.to(out_dtype)

@@ -6,7 +6,8 @@ cannot). The counters count CUDA launches only: a run reads them to show
 that its path went through the kernels. ``conv2d_int8`` and
 ``conv2d_int8_cout_blocks`` count the int8 conv's two grids apart (the
 whole-Cout grid and the autotuner's channel-blocked one); ``conv2d`` is
-the fp32 conv.
+the fp32 conv. ``int8_matmul`` counts both of its kernels;
+:func:`route_counts` says which of them served (``kernels/int8_matmul.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +51,13 @@ def launch_counts() -> Dict[str, int]:
             for name, (mod, attr) in COUNTERS.items()}
 
 
+def route_counts() -> Dict[str, int]:
+    """``int8_matmul``'s launches by kernel: ``tile`` and ``splitk``."""
+    return {"tile": _int8mm.launches_tile,
+            "splitk": _int8mm.launches_splitk}
+
+
 def reset_launch_counts() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    _int8mm.launches_tile = _int8mm.launches_splitk = 0

@@ -70,12 +70,18 @@ def _requests(n, seed):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 5, 3), (16, 32769, 92), (16, 92, 1),
-                                   (33, 300, 130)])
+@pytest.mark.parametrize("m,k,n,forced", [
+    (1, 5, 3, None), (16, 32769, 92, None), (16, 92, 1, None),
+    (33, 300, 130, None),           # the tile kernel, by the rule
+    (31, 300, 130, "splitk"),       # split-K: two row tiles, the last ragged
+    (33, 300, 130, "splitk")])      # split-K: three row tiles
 @pytest.mark.parametrize("act,requant,bias", [
     (None, None, True), ("relu", REQUANT, True), ("sigmoid", None, False)])
-def test_int8_matmul_kernel_matches_plain(cuda_device, m, k, n, act, requant,
-                                          bias):
+def test_int8_matmul_kernel_matches_plain(cuda_device, monkeypatch, m, k, n,
+                                          forced, act, requant, bias):
+    if forced is not None:
+        monkeypatch.setattr(tmm, "route", lambda m, k, n: forced)
+    which = tmm.route(m, k, n)
     g = torch.Generator().manual_seed(m + k + n)
     x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
     w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
@@ -84,10 +90,10 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, m, k, n, act, requant,
     b = torch.randn(n, generator=g) if bias else None
     args = [v.to(cuda_device) if v is not None else None
             for v in (x, w, xs, ws, b)]
-    before = tmm.launches
+    kops.reset_launch_counts()
     got = tmm.int8_matmul(*args, act=act, requant_scale=requant)
     torch.cuda.synchronize()
-    assert tmm.launches == before + 1
+    assert tmm.launches == 1 and kops.route_counts()[which] == 1
     want = tmm.int8_matmul_plain(*args, act, requant)
     if act == "sigmoid":
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
@@ -187,6 +193,120 @@ def test_int8_matmul_indexes_past_2_to_the_31(cuda_device):
     del got
 
 
+# the tile kernel's shapes: M past split-K's 32 up to a B=4 prefill, K and N
+# ragged and not 16-byte aligned (byte-load staging) as well as the LM's
+# aligned widths; the [8192, 32000] head only at its own K
+TILE_SHAPES = [(m, k, n) for m in (65, 200, 8192) for k in (8, 92, 2048, 4099)
+               for n in (1, 64, 130, 32000)
+               if not (m == 8192 and n == 32000 and k != 2048)]
+
+
+@pytest.mark.parametrize("m,k,n", TILE_SHAPES)
+@pytest.mark.parametrize("act,requant,bias", [
+    (None, None, True), ("relu", REQUANT, True), ("sigmoid", None, False)])
+def test_int8_matmul_tile_kernel_matches_plain(cuda_device, monkeypatch, m,
+                                               k, n, act, requant, bias):
+    # K = 8 is below the rule's wgmma step: force the tile kernel
+    monkeypatch.setattr(tmm, "route", lambda m, k, n: "tile")
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    xs = torch.rand(m, generator=g) * 0.01 + 1e-3
+    ws = torch.rand(n, generator=g) * 0.01 + 1e-3
+    b = torch.randn(n, generator=g) if bias else None
+    args = [v.to(cuda_device) if v is not None else None
+            for v in (x, w, xs, ws, b)]
+    before = tmm.launches_tile
+    got = tmm.int8_matmul(*args, act=act, requant_scale=requant)
+    torch.cuda.synchronize()
+    assert tmm.launches_tile == before + 1
+    want = tmm.int8_matmul_plain(*args, act, requant)
+    if act == "sigmoid":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,kp,n,np_,bk,bn", [
+    (300, 2048, 2048, 2000, 2048, 1024, 256),    # n_out < np, K = kp
+    (100, 70, 128, 13, 16, 128, 16),             # k < kp, ragged
+    (2048, 2048, 2048, 32000, 32000, 1024, 256)])  # the tuned LM head
+@pytest.mark.parametrize("act,requant", [("relu", REQUANT), (None, None)])
+def test_int8_matmul_prepacked_tile_kernel_matches_plain(
+        cuda_device, m, k, kp, n, np_, bk, bn, act, requant):
+    """A prepacked [kp, np] arena read in place by the tile kernel: row
+    stride ldw = np, x's logical K, ``n_out`` columns written."""
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    xs = torch.rand(m, generator=g) * 0.01 + 1e-3
+    ws = torch.rand(n, generator=g) * 0.01 + 1e-3
+    b = torch.randn(n, generator=g)
+    wp = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+    wsp, bp = pad_channel_params(ws, b, np_ - n)
+    dev = [v.to(cuda_device) for v in (x, wp, xs, wsp, bp)]
+    assert tmm.route(m, k, n) == "tile"
+    before = tmm.launches_tile
+    got = tmm.int8_matmul(*dev, act=act, requant_scale=requant, bm=128,
+                          bn=bn, bk=bk, prepacked=True, n_out=n)
+    torch.cuda.synchronize()
+    assert tmm.launches_tile == before + 1
+    want = tmm.int8_matmul_plain(*[v.to(cuda_device)
+                                   for v in (x, w, xs, ws, b)], act, requant)
+    assert torch.equal(got, want)
+
+
+def test_int8_matmul_route_counters_show_the_kernel_that_ran(cuda_device,
+                                                            monkeypatch):
+    """The rule's choice is what launches, and the counters say which;
+    both kernels give the same bits on the same operands."""
+    rule = tmm.route
+    g = torch.Generator().manual_seed(9)
+    outs = {}
+    for m in (4, 100):
+        x = torch.randint(-127, 128, (m, 4096), generator=g,
+                          dtype=torch.int8).to(cuda_device)
+        w = torch.randint(-127, 128, (4096, 96), generator=g,
+                          dtype=torch.int8).to(cuda_device)
+        xs, ws = torch.ones(m, device=cuda_device), torch.ones(
+            96, device=cuda_device)
+        for kernel in (None, "tile", "splitk"):
+            monkeypatch.setattr(tmm, "route", rule if kernel is None
+                                else lambda m, k, n, r=kernel: r)
+            kops.reset_launch_counts()
+            outs[m, kernel] = tmm.int8_matmul(x, w, xs, ws)
+            torch.cuda.synchronize()
+            ran = kernel or rule(m, 4096, 96)
+            assert kops.route_counts() == {
+                "tile": int(ran == "tile"), "splitk": int(ran == "splitk")}
+            assert kops.launch_counts()["int8_matmul"] == 1
+        assert torch.equal(outs[m, "tile"], outs[m, "splitk"])
+        assert torch.equal(outs[m, None], outs[m, "tile"])
+    assert rule(4, 4096, 96) == "splitk"
+    assert rule(100, 4096, 96) == "tile"
+
+
+def test_int8_matmul_tile_indexes_past_2_to_the_31(cuda_device):
+    """The tile kernel at M * N just past 2^31 (M = 65,600, N = 32,768):
+    rows at both ends against the plain version on the same rows."""
+    g = torch.Generator().manual_seed(31)
+    m, k, n = 65_600, 40, 32_768
+    x = torch.randint(-127, 128, (m, k), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    w = torch.randint(-127, 128, (k, n), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    xs = (torch.rand(m, generator=g) * 0.01 + 1e-3).to(cuda_device)
+    ws = (torch.rand(n, generator=g) * 0.01 + 1e-3).to(cuda_device)
+    assert tmm.route(m, k, n) == "tile"
+    got = tmm.int8_matmul(x, w, xs, ws)
+    torch.cuda.synchronize()
+    assert m * n > 2 ** 31
+    for rows in (slice(0, 64), slice(m - 64, m)):
+        want = tmm.int8_matmul_plain(x[rows], w, xs[rows], ws)
+        assert torch.equal(got[rows], want)
+    del got
+
+
 FLASH_CASES = [
     # b, sq, sk, hq, hkv, hd, causal
     (2, 37, 37, 4, 2, 8, True),          # GQA, ragged
@@ -197,6 +317,8 @@ FLASH_CASES = [
     (2, 256, 256, 8, 8, 64, True),
     (1, 70, 70, 2, 1, 128, True),        # the hd <= 128 instantiation
     (1, 65, 65, 2, 2, 100, False),
+    (1, 2048, 2048, 4, 4, 64, True),     # the LM's prefill shape, 4 heads
+    (1, 512, 512, 4, 2, 128, True),      # hd 128 at S = 512
 ]
 
 
