@@ -42,11 +42,19 @@ to 0 just before a path is driven and read just after); a profiler pass
 breaks each path's device time down by kernel. Any failed phase makes the
 exit code non-zero; the last line is a JSON verdict only on success.
 
+    python3 chip_smoke.py --conv-only [SRC]
+
+builds the kernels of another checkout's ``src/`` (this one's by
+default) and runs only the three conv phases, so that two commits' conv
+kernels are timed on one card in one call (run parent, change, change,
+parent).
+
 Needs a CUDA card and the repository's ``src/`` beside this file. Imports
 nothing of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import shutil
@@ -373,6 +381,29 @@ def per_call_device_us(torch, calls):
     return sum(r[0] for r in rows) / len(calls) if rows else None
 
 
+def conv_device_ms(torch, fn, n: int = 20):
+    """A conv call's device time in ms by the profiler's clock (the mean
+    over ``n`` back-to-back calls; their inputs stay in L2, as a served
+    layer finds the activation its producer just wrote), or None when the
+    profiler recorded no device time. Event-timed ``ms`` of a call of tens
+    of us carries the wrapper's host work; this does not."""
+    us = per_call_device_us(torch, [fn] * n)
+    return None if us is None else us / 1e3
+
+
+def _fmt(v):
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def _smem(cv, cin, bc, requant):
+    """The int8 conv block's shared memory (an older checkout's size
+    query takes no output type)."""
+    try:
+        return cv.smem_bytes(cin, bc, 3, 3, 1, requant)
+    except TypeError:
+        return cv.smem_bytes(cin, bc, 3, 3, 1)
+
+
 @phase("int8_matmul route rule: device time of both kernels at small M "
        "(the LM's projections at M = 1, 4, 16, 32, 64; CNet's fc1 and "
        "head at B=16)")
@@ -444,6 +475,7 @@ def conv_phase(torch, gen, flush):
         err = exact(torch, out, ref)
         t = device_ms(torch, lambda: cv.conv2d_int8(x, w, ws, b, **kw), 30,
                       flush)
+        td = conv_device_ms(torch, lambda: cv.conv2d_int8(x, w, ws, b, **kw))
         tp = device_ms(torch, lambda: cv.conv2d_int8_plain(x, w, ws, b, **kw),
                        5, flush)
         out_bytes = BATCH * h * w_ * cout * (1 if rq is not None else 4)
@@ -454,8 +486,8 @@ def conv_phase(torch, gen, flush):
                           f"{rq is not None}", err=err, ms=t, plain_ms=tp,
                           library_ms=None, bound_ms=bms, bound_by=by))
         _print_case(cases[-1])
-        print(f"     dynamic shared memory per block: "
-              f"{cv.smem_bytes(cin, cout, 3, 3, 1)} B")
+        print(f"     device_ms={_fmt(td)} (profiler); dynamic shared memory "
+              f"per block: {_smem(cv, cin, cout, rq is not None)} B")
     print("   library_ms: none (PyTorch has no int8 convolution on CUDA)")
     return _kernel_record("conv2d_int8", "src/repro_torch/csrc/conv2d_int8.cu",
                           TPU_KERNELS["conv2d_int8"], cases)
@@ -480,7 +512,7 @@ def conv_blocks_phase(torch, gen, flush):
         bias = torch.randn(cout, generator=gen).to(dev)
         kw = dict(x_scale=0.00876, stride=1, padding="SAME", act="relu",
                   requant_scale=rq, rows_per_block=rows)
-        whole = cv.smem_bytes(cin, cout, 3, 3, 1)
+        whole = _smem(cv, cin, cout, rq is not None)
         if whole > 232448:
             try:
                 cv.conv2d_int8(x, w, ws, bias, **kw)
@@ -503,6 +535,8 @@ def conv_blocks_phase(torch, gen, flush):
         err = exact(torch, out, ref)
         t = device_ms(torch, lambda: cv.conv2d_int8(
             xk, w, ws, bias, cout_per_block=bc, **kw_k), 30, flush)
+        td = conv_device_ms(torch, lambda: cv.conv2d_int8(
+            xk, w, ws, bias, cout_per_block=bc, **kw_k))
         tp = device_ms(torch, lambda: cv.conv2d_int8_plain(
             xk, w, ws, bias, **kw_k), 5, flush)
         out_bytes = b * h * w_ * cout * (1 if rq is not None else 4)
@@ -515,8 +549,10 @@ def conv_blocks_phase(torch, gen, flush):
                           plain_ms=tp, library_ms=None, bound_ms=bms,
                           bound_by=by))
         _print_case(cases[-1])
-        print(f"     dynamic shared memory per block: "
-              f"{cv.smem_bytes(cin, bc, 3, 3, 1)} B with channel blocks, "
+        print(f"     device_ms={_fmt(td)} (profiler); dynamic shared "
+              f"memory per block: "
+              f"{_smem(cv, cin, bc, rq is not None)} B with "
+              f"channel blocks, "
               f"{whole} B whole-Cout; {-(-cout // bc)} channel blocks")
     print("   library_ms: none (PyTorch has no int8 convolution on CUDA)")
     return _kernel_record("conv2d_int8_cout_blocks",
@@ -557,6 +593,9 @@ def conv_f32_phase(torch, gen, flush):
         close(torch, lib, out, 1e-4)
         tl = device_ms(torch, lambda: F.conv2d(xl, wl, bias, stride=stride),
                        30, flush)
+        td = conv_device_ms(torch, lambda: cv.conv2d(x, w, bias, **kw))
+        tld = conv_device_ms(torch, lambda: F.conv2d(xl, wl, bias,
+                                                     stride=stride))
         nbytes = 4 * (x.numel() + w.numel() + cout + out.numel())
         ops = 2.0 * out.numel() * 9 * cin
         bms, by = bound_ms(nbytes, ops, PEAK_FP32_OPS_S)
@@ -564,7 +603,9 @@ def conv_f32_phase(torch, gen, flush):
                           f"{stride}", err=err, ms=t, plain_ms=tp,
                           library_ms=tl, bound_ms=bms, bound_by=by))
         _print_case(cases[-1])
-        print(f"     {cv.f32_block_channels(cin, cout, 3, 3, stride)} "
+        print(f"     device_ms={_fmt(td)}, cuDNN device_ms={_fmt(tld)} "
+              f"(profiler); "
+              f"{cv.f32_block_channels(cin, cout, 3, 3, stride)} "
               f"output channels per block")
     print("   tolerance 1e-4 (abs and rel) against the plain version; "
           "library_ms: F.conv2d with bias (cuDNN, TF32 off, no relu) on the "
@@ -1193,12 +1234,36 @@ def lm_tuned_phase(torch, lm):
     return counts
 
 
+def conv_only(torch, src: Path) -> int:
+    """Build ``src``'s kernels and run the three conv phases only."""
+    records = []
+    if build_phase() is not None:
+        gen = torch.Generator().manual_seed(0)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        for ph in (conv_phase, conv_blocks_phase, conv_f32_phase):
+            rec = ph(torch, gen, flush)
+            if rec is not None:
+                records.append(rec)
+    print(json.dumps({"kernels": records, "src": str(src)}), flush=True)
+    print(gpu_line(), flush=True)
+    if FAILURES:
+        print(f"FAILED phases: {FAILURES}", flush=True)
+        return 1
+    return 0
+
+
 def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
-        print("chip_smoke.py: src/repro_torch not found beside this file",
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--conv-only", nargs="?", const=str(SRC), metavar="SRC",
+                    help="build SRC's kernels (a checkout's src/, this "
+                    "one's by default) and run only the conv phases")
+    args = ap.parse_args()
+    src = SRC if args.conv_only is None else Path(args.conv_only).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke.py: {src}/repro_torch not found",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1208,6 +1273,8 @@ def main() -> int:
           f"{sys.version.split()[0]}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.conv_only is not None:
+        return conv_only(torch, src)
 
     records = []
     if build_phase() is not None:

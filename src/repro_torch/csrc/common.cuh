@@ -1,5 +1,6 @@
 // Shared pieces of the port's CUDA kernels: the plain-C error hook every
-// library exports, and the fp32 epilogue tail both int8 kernels apply.
+// library exports, the fp32 epilogue tail the int8 kernels apply, and the
+// 3xTF32 split and TF32 mma that flash_attention and the fp32 conv use.
 //
 // Rounding contract (kernels/epilogue.py holds the plain PyTorch twin):
 //   * every multiply and add is an explicit round-to-nearest intrinsic
@@ -43,4 +44,21 @@ __device__ __forceinline__ void store_epilogue(void* out, long long idx,
   } else {
     static_cast<float*>(out)[idx] = v;
   }
+}
+
+// x = big + small: big is x truncated to TF32 (low 13 bits cleared),
+// small = x - big exactly; the mma reads small's top 19 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// c (16 x 8, fp32) += a (16 x 8, tf32) x b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

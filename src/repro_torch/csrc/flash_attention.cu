@@ -84,23 +84,6 @@ struct Smem {
   static constexpr int kBytes = (kQ + 2 * kK + 2 * kV) * 4;
 };
 
-// x = big + small: big is x truncated to TF32 (low 13 bits cleared),
-// small = x - big exactly; the mma reads small's top 19 bits
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
-}
-
-// c (16 x 8, fp32) += a (16 x 8, tf32) x b (8 x 8, tf32)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // c[c0 + j] += a x b_j for eight column groups in 3xTF32, where b_j's
 // two entries are (x[j], y[j]): the small terms of all eight first
 template <int N>

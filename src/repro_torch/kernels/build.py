@@ -40,7 +40,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ssd": "ssd.cu",
 }
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "igemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v")

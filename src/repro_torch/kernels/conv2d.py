@@ -4,14 +4,22 @@ engine), plus the shared SAME/VALID pad geometry.
 ``conv2d_int8`` replaces the Pallas kernel ``conv2d_int8``
 (src/repro/kernels/conv2d.py, ``_kernel_int8``) with
 ``csrc/conv2d_int8.cu``. The TPU kernel held a whole padded image in VMEM
-and ran KH*KW shifted matmuls per output row. On Hopper a block owns an
-8 x 32 tile of output pixels for all output channels and stages the input
-patch and the filter in shared memory, so each input byte is read from
-device memory about once; the SAME padding is produced while staging
-(zero bytes), so no padded copy of the input is written. The served
-layers are bound by memory traffic at the card's int8 rate; this simple
-design is limited by its scalar ``__dp4a`` issue rate instead (its time is
-in PERF.md beside the bound).
+and ran KH*KW shifted matmuls per output row. On Hopper the conv is an
+implicit GEMM on the tensor cores (``mma.sync`` m16n8k32 int8, int32 sums,
+so bit-exact in any order; ``csrc/igemm.cuh`` holds the skeleton): M is a
+4 x 32 sub-tile of output pixels, N the block's channels, K the filter's
+own [KH, KW, Cin] order padded to 32. Blocks are persistent, stage their
+filter slice once and walk tiles of 1, 2 or 4 sub-tiles (``sub_tiles``
+picks the count from the footprint and the tile count: a schedule, never
+a result) with the next tiles' input patches in flight (cp.async, three
+slots); the SAME padding is produced as zeros while staging, so no padded
+copy of the input is written. Cin a multiple of 16 is read from the patch
+in place; other Cin (the stem's 2) through im2col rows built in shared
+memory. Each warp stages its outputs in shared memory and writes them as
+16-byte stores. The served layers' byte bounds are far below the kernel's
+times, which the epilogue and staging instruction rates set (PERF.md has
+both). ``tests/test_torch_conv_igemm.py`` mirrors the kernels' index map
+on the CPU.
 
 Epilogue: ``fma(f32(acc), w_scale[co] * f32(x_scale), bias[co])`` — the
 dequant product is formed first, and the bias add is one rounding, as the
@@ -26,13 +34,19 @@ whole). ``pre_padded``/``in_hw``/``rows_per_block``/``cout`` have the
 reference's meaning (an input already staged by :func:`conv_geometry` at
 ``rows_per_block``, weights padded to whole channel blocks with the
 logical ``cout`` passed apart); ``rows_per_block`` fixes only that staging
-geometry, the CUDA row tile stays 8. Launches of the two grids are counted
-apart (``launches``, ``launches_cout_blocks``).
+geometry, the CUDA sub-tile stays 4 x 32 pixels. Launches of the two grids are
+counted apart (``launches``, ``launches_cout_blocks``).
 
 ``conv2d`` replaces the reference's fp32 Pallas kernel (``conv2d.py``,
 ``_kernel``) with ``csrc/conv2d_f32.cu``: NHWC SAME/VALID, stride s, bias
-and optional relu in IEEE fp32 FFMA (no TF32, no fast math), the same
-tiling as the int8 kernel. It lies on no served path, as in the reference.
+and optional relu, on the same skeleton with the product in 3xTF32
+``mma.sync`` m16n8k8 (the split of ``csrc/flash_attention.cu``, within
+1e-4 of fp32; bias add and relu in IEEE fp32). It lies on no served path,
+as in the reference.
+
+The kernels copy their input with 16-byte ``cp.async``: an input whose
+address is not 16-byte aligned (a view into another tensor) is first
+copied into a fresh buffer.
 
 ``ConvGeom``/``conv_geometry``/``pad_input`` are a plain copy of the
 reference's geometry (pure functions of static shapes).
@@ -57,13 +71,16 @@ launches_cout_blocks = 0
 launches_f32 = 0
 
 _ACT_CODE = {None: 0, "relu": 1, "sigmoid": 2}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 15
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
-_F32_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+_F32_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
                  + [ctypes.c_void_p])
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block can use
-MAX_GRID_Z = 65535          # images x channel blocks ride on gridDim.z
+MAX_GRID_Y = 65535          # channel blocks ride on gridDim.y
+# a tile of more than one 4-row sub-tile only while three blocks still fit
+# an SM's shared memory
+SUB_TILE_SMEM = 72 * 1024
 
 
 class ConvGeom(NamedTuple):
@@ -117,6 +134,13 @@ def pad_input(x: torch.Tensor, g: ConvGeom) -> torch.Tensor:
     return F.pad(x, (0, 0, g.pad_left, g.pad_right, g.pad_top, g.pad_bottom))
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte-aligned address (the kernels' input
+    copies are 16-byte ``cp.async``): a misaligned view is copied once."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _staging(x_q: torch.Tensor, kh: int, kw: int, stride: int,
              padding: str, rows_per_block: int, pre_padded: bool,
              in_hw) -> ConvGeom:
@@ -167,15 +191,38 @@ def conv2d_int8_plain(x_q: torch.Tensor, w_q: torch.Tensor,
     return apply_epilogue(out, act, requant_scale)
 
 
-def smem_bytes(cin: int, bc: int, kh: int, kw: int, stride: int) -> int:
+@functools.lru_cache(maxsize=None)
+def smem_bytes(cin: int, bc: int, kh: int, kw: int, stride: int,
+               requant: bool = True, msub: int = 1) -> int:
     """Dynamic shared memory one block of the int8 kernel takes for ``bc``
-    output channels (input patch + filter slice; ``bc`` = Cout for the
-    whole-Cout grid), as the kernel's own code sizes it (builds the
-    kernel library on first use)."""
+    output channels (filter slice, the input-patch ring for tiles of
+    ``msub`` 4-row sub-tiles, the im2col rows for small Cin and the output
+    staging, int8 with ``requant`` else f32; ``bc`` = Cout for the
+    whole-Cout grid), as the kernel's own code sizes it (builds the kernel
+    library on first use)."""
     lib = build.library("conv2d_int8")
     fn = lib.conv2d_int8_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
-    return fn(cin, bc, kh, kw, stride)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_int
+    return fn(cin, bc, kh, kw, stride, int(requant), msub)
+
+
+def sub_tiles(b: int, h_out: int, w_out: int, sms: int, smem_of) -> int:
+    """4-row sub-tiles per tile of the conv kernels (4, 2 or 1): the most
+    whose block (``smem_of(msub)`` bytes) still fits three to an SM while
+    the launch keeps at least four tiles per SM. Each sub-tile more spreads
+    a tile's fixed work (the patch ring, the block barrier, the tile's
+    setup) over 128 more pixels and re-reads fewer input rows; the pick
+    changes the schedule only, never a result."""
+    for msub in (4, 2):
+        tiles = b * -(-h_out // (4 * msub)) * -(-w_out // 32)
+        if smem_of(msub) <= SUB_TILE_SMEM and tiles >= 4 * sms:
+            return msub
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -227,20 +274,21 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     # block would hold them all
     bc = cout_per_block or cw
     blocks = -(-cw // bc) * bc != bc
-    smem = smem_bytes(cin, bc if blocks else cout, kh, kw, stride)
+    requant = requant_scale is not None
+    bcw = bc if blocks else cout
+    smem = smem_bytes(cin, bcw, kh, kw, stride, requant)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"conv2d_int8: a {kh}x{kw}x{cin}x{bc if blocks else cout} "
             f"filter slice needs {smem} B of shared memory per block "
             f"(at most {_SMEM_LIMIT}); set a smaller cout_per_block")
-    if b * (-(-cout // bc) if blocks else 1) > MAX_GRID_Z:
-        raise ValueError(f"conv2d_int8: {b} images x channel blocks exceed "
-                         f"gridDim.z ({MAX_GRID_Z})")
-    x_q, w_q = x_q.contiguous(), w_q.contiguous()
+    if blocks and -(-cout // bc) > MAX_GRID_Y:
+        raise ValueError(f"conv2d_int8: {-(-cout // bc)} channel blocks "
+                         f"exceed gridDim.y ({MAX_GRID_Y})")
+    x_q, w_q = _aligned(x_q), w_q.contiguous()
     w_scale = w_scale.float().contiguous()
     if bias is not None:
         bias = bias.float().contiguous()
-    requant = requant_scale is not None
     out = torch.empty((b, g.h_out, g.w_out, cout), device=x_q.device,
                       dtype=torch.int8 if requant else torch.float32)
     # a pre-padded input is read as stored: its dims, pad offsets 0
@@ -248,10 +296,14 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     lib = build.library("conv2d_int8")
     fn = lib.conv2d_int8
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    msub = sub_tiles(b, g.h_out, g.w_out, _sm_count(x_q.device.index),
+                     lambda m: smem_bytes(cin, bcw, kh, kw, stride, requant,
+                                          m))
     rc = fn(build.ptr(x_q), build.ptr(w_q), build.ptr(w_scale),
             build.ptr(bias), build.ptr(out), b, h, wd, cin, cout, cw, kh, kw,
             stride, pad_top, pad_left, g.h_out, g.w_out,
-            bc if blocks else 0, f32(x_scale), _ACT_CODE[act], int(requant),
+            bc if blocks else 0, msub, f32(x_scale), _ACT_CODE[act],
+            int(requant),
             reciprocal_f32(requant_scale) if requant else 0.0,
             build.stream(x_q))
     build.check(lib, rc, "conv2d_int8")
@@ -289,15 +341,26 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.clamp_min(acc, 0.0) if relu else acc
 
 
+@functools.lru_cache(maxsize=None)
 def f32_block_channels(cin: int, cout: int, kh: int, kw: int,
                        stride: int) -> int:
-    """Output channels per block of the fp32 kernel: up to 64, halved
-    until the block's patch and filter slice fit shared memory (0 when
-    not even 4 channels fit)."""
+    """Output channels per block of the fp32 kernel: a multiple of 8 up to
+    64, halved until the block's shared memory (patch ring, filter slice,
+    im2col rows, output staging) fits (0 when not even 8 channels fit)."""
     lib = build.library("conv2d_f32")
     fn = lib.conv2d_f32_block_channels
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
     return fn(cin, cout, kh, kw, stride)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_smem_bytes(cin: int, bc: int, kh: int, kw: int, stride: int,
+                   msub: int = 1) -> int:
+    """Dynamic shared memory one block of the fp32 kernel takes."""
+    lib = build.library("conv2d_f32")
+    fn = lib.conv2d_f32_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_int
+    return fn(cin, bc, kh, kw, stride, msub)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -320,10 +383,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     if bc == 0:
         raise ValueError(f"conv2d: a {kh}x{kw}x{cin} filter's input patch "
                          f"does not fit one block's shared memory")
-    if b * -(-cout // bc) > MAX_GRID_Z:
-        raise ValueError(f"conv2d: {b} images x channel blocks exceed "
-                         f"gridDim.z ({MAX_GRID_Z})")
-    x, w = x.float().contiguous(), w.float().contiguous()
+    if -(-cout // bc) > MAX_GRID_Y:
+        raise ValueError(f"conv2d: {-(-cout // bc)} channel blocks exceed "
+                         f"gridDim.y ({MAX_GRID_Y})")
+    x, w = _aligned(x.float()), w.float().contiguous()
     if bias is not None:
         bias = bias.float().contiguous()
     out = torch.empty((b, g.h_out, g.w_out, cout), device=x.device,
@@ -331,9 +394,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     lib = build.library("conv2d_f32")
     fn = lib.conv2d_f32
     fn.argtypes, fn.restype = _F32_ARGTYPES, ctypes.c_int
+    msub = sub_tiles(b, g.h_out, g.w_out, _sm_count(x.device.index),
+                     lambda m: f32_smem_bytes(cin, bc, kh, kw, stride, m))
     rc = fn(build.ptr(x), build.ptr(w), build.ptr(bias), build.ptr(out), b,
             h, wd, cin, cout, kh, kw, stride, g.pad_top, g.pad_left, g.h_out,
-            g.w_out, bc, int(relu), build.stream(x))
+            g.w_out, bc, msub, int(relu), build.stream(x))
     build.check(lib, rc, "conv2d")
     launches_f32 += 1
     return out

@@ -103,7 +103,16 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, monkeypatch, m, k, n,
 
 @pytest.mark.parametrize("b,h,w,cin,cout,stride,padding", [
     (2, 10, 9, 4, 3, 2, "VALID"), (3, 37, 70, 2, 48, 1, "SAME"),
-    (2, 64, 64, 48, 32, 1, "SAME"), (1, 9, 11, 5, 7, 2, "SAME")])
+    (2, 64, 64, 48, 32, 1, "SAME"), (1, 9, 11, 5, 7, 2, "SAME"),
+    # the implicit-GEMM kernel's edges: im2col Cin (3, 20), in-place Cin
+    # (48, 64, 128), Cout not a multiple of 8, Ho/Wo not multiples of the
+    # 4 x 32 tile, stride 2 SAME and VALID, two 64-channel passes, and
+    # CNet's stem at B=16 and B=4 (tiles of 4 and of 2 sub-tiles, more
+    # tiles than the persistent blocks)
+    (2, 13, 45, 3, 9, 2, "SAME"), (1, 9, 70, 20, 12, 1, "SAME"),
+    (2, 17, 35, 48, 48, 1, "SAME"), (1, 12, 33, 64, 7, 2, "VALID"),
+    (1, 11, 40, 128, 24, 1, "SAME"), (1, 6, 9, 16, 70, 1, "SAME"),
+    (16, 256, 256, 2, 48, 1, "SAME"), (4, 256, 256, 2, 48, 1, "SAME")])
 @pytest.mark.parametrize("act,requant,bias", [
     (None, None, True), ("relu", 0.05, True), ("relu", None, False)])
 def test_conv2d_int8_kernel_matches_plain(cuda_device, b, h, w, cin, cout,
@@ -441,7 +450,9 @@ def test_card_lm_engine_matches_cpu_engine(cuda_device):
     (2, 10, 10, 4, 9, 8, 2, "SAME", 3),
     (3, 17, 33, 5, 20, 16, 2, "VALID", 4),
     (16, 256, 256, 2, 48, 16, 1, "SAME", 256),   # CNet's tuned act0
-    (1, 32, 32, 128, 512, 64, 1, "SAME", 8)])    # too wide for one block
+    (1, 32, 32, 128, 512, 64, 1, "SAME", 8),     # too wide for one block
+    (2, 11, 37, 20, 20, 8, 2, "VALID", 4),       # im2col, K 180
+    (1, 12, 35, 64, 28, 16, 1, "SAME", 5)])      # in place, 2 blocks
 @pytest.mark.parametrize("pre_padded", [False, True])
 @pytest.mark.parametrize("requant,bias", [(0.05, True), (None, False)])
 def test_conv2d_int8_cout_blocks_kernel_matches_plain(
@@ -530,7 +541,13 @@ def test_int8_matmul_prepacked_kernel_matches_plain(cuda_device, m, k, kp,
     (2, 12, 20, 4, 16, 5, 1, "VALID"), (16, 128, 256, 3, 8, 3, 2, "SAME"),
     (2, 9, 9, 2, 4, 3, 2, "VALID"), (2, 14, 18, 3, 8, 3, 2, "VALID"),
     (4, 256, 256, 2, 48, 3, 1, "SAME"),
-    (1, 20, 20, 96, 150, 3, 1, "SAME")])     # several channel blocks
+    (1, 20, 20, 96, 150, 3, 1, "SAME"),      # several channel blocks
+    # the implicit-GEMM kernel's edges: im2col Cin (5, 20), in-place Cin
+    # (32, 64), Cout not a multiple of 8, stride 2 SAME and VALID, and
+    # CNet's fp32 stem at B=16 (more tiles than persistent blocks)
+    (1, 11, 37, 5, 7, 3, 2, "SAME"), (2, 9, 40, 20, 9, 3, 1, "VALID"),
+    (1, 10, 34, 32, 3, 3, 2, "SAME"), (1, 6, 33, 64, 12, 3, 1, "SAME"),
+    (2, 13, 45, 3, 9, 3, 2, "VALID"), (16, 256, 256, 2, 48, 3, 1, "SAME")])
 @pytest.mark.parametrize("relu,bias", [(True, True), (False, False)])
 def test_conv2d_f32_kernel_matches_plain(cuda_device, b, h, w, cin, cout,
                                          kh, stride, padding, relu, bias):
@@ -549,6 +566,80 @@ def test_conv2d_f32_kernel_matches_plain(cuda_device, b, h, w, cin, cout,
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_conv_kernels_read_misaligned_views(cuda_device):
+    """An input view that does not start on a 16-byte boundary (the
+    kernels copy with 16-byte cp.async) is copied once and convolved
+    right."""
+    g = torch.Generator().manual_seed(9)
+    xb = torch.randint(-127, 128, (3, 9, 21, 2), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    x = xb.view(-1)[1:1 + 2 * 9 * 21 * 2].view(2, 9, 21, 2)
+    assert x.data_ptr() % 16 != 0
+    wq = torch.randint(-127, 128, (3, 3, 2, 8), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    ws = (torch.rand(8, generator=g) * 0.01).to(cuda_device)
+    kw = dict(x_scale=0.02, act="relu", requant_scale=0.05)
+    got = tconv.conv2d_int8(x, wq, ws, **kw)
+    assert torch.equal(got, tconv.conv2d_int8_plain(x, wq, ws, **kw))
+    xf = torch.randn((3, 9, 21, 3), generator=g).to(cuda_device)
+    xf = xf.view(-1)[1:1 + 2 * 9 * 21 * 3].view(2, 9, 21, 3)
+    wf = (torch.randn((3, 3, 3, 8), generator=g) * 0.1).to(cuda_device)
+    torch.testing.assert_close(kops.conv2d(xf, wf), kops.conv2d_plain(xf, wf),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("msub", [1, 2, 4])
+def test_conv_kernels_match_plain_at_every_sub_tile_count(cuda_device,
+                                                          monkeypatch, msub):
+    """Tiles of 1, 2 and 4 sub-tiles of 4 rows (the wrapper's pick is a
+    schedule only): both int8 grids, im2col and in place, and the fp32
+    conv with padded and whole pixels, each equal to its plain version."""
+    monkeypatch.setattr(tconv, "sub_tiles", lambda *a: msub)
+    g = torch.Generator().manual_seed(msub)
+    # (B, H, W, Cin, Cout, bc, stride): every footprint fits at msub 4
+    for (b, h, w, cin, cout, bc, stride) in ((2, 37, 70, 2, 48, 0, 1),
+                                            (2, 21, 45, 32, 20, 8, 2),
+                                            (1, 30, 33, 5, 9, 0, 2)):
+        x = torch.randint(-127, 128, (b, h, w, cin), generator=g,
+                          dtype=torch.int8).to(cuda_device)
+        wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=g,
+                           dtype=torch.int8).to(cuda_device)
+        ws = (torch.rand(cout, generator=g) * 0.01).to(cuda_device)
+        bb = torch.randn(cout, generator=g).to(cuda_device)
+        kw = dict(x_scale=0.02, stride=stride, act="relu",
+                  requant_scale=0.05)
+        got = tconv.conv2d_int8(x, wq, ws, bb, cout_per_block=bc, **kw)
+        assert torch.equal(got, tconv.conv2d_int8_plain(x, wq, ws, bb, **kw))
+    for (b, h, w, cin, cout, stride) in ((2, 37, 70, 2, 48, 1),
+                                         (1, 30, 33, 3, 9, 2),
+                                         (2, 21, 45, 8, 20, 1)):
+        xf = torch.randn((b, h, w, cin), generator=g).to(cuda_device)
+        wf = (torch.randn((3, 3, cin, cout), generator=g) * 0.1).to(
+            cuda_device)
+        torch.testing.assert_close(
+            kops.conv2d(xf, wf, stride=stride, relu=True),
+            kops.conv2d_plain(xf, wf, stride=stride, relu=True), rtol=1e-4,
+            atol=1e-4)
+
+
+def test_conv2d_int8_takes_more_images_than_a_grid_axis(cuda_device):
+    """Persistent blocks walk the images, so 70,000 images (more than the
+    65,535 blocks of a grid axis the earlier grid put them on) run in one
+    launch, equal to the plain version."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(-127, 128, (70000, 2, 3, 2), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    wq = torch.randint(-127, 128, (3, 3, 2, 3), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    ws = (torch.rand(3, generator=g) * 0.01).to(cuda_device)
+    kw = dict(x_scale=0.02, act="relu", requant_scale=0.05)
+    before = tconv.launches
+    got = tconv.conv2d_int8(x, wq, ws, **kw)
+    torch.cuda.synchronize()
+    assert tconv.launches == before + 1
+    assert torch.equal(got, tconv.conv2d_int8_plain(x, wq, ws, **kw))
+
+
 def test_cuda_tensors_the_kernels_cannot_take_raise(cuda_device):
     """No quiet fall back to the plain version: a CUDA operand set the
     kernel cannot launch on raises before launching."""
@@ -561,6 +652,12 @@ def test_cuda_tensors_the_kernels_cannot_take_raise(cuda_device):
     with pytest.raises(ValueError, match="does not match geometry"):
         tconv.conv2d_int8(x, w, ws, cout_per_block=64, pre_padded=True,
                           in_hw=(32, 32))
+    # channel blocks ride on gridDim.y: 65,536 blocks of one channel do not
+    wn = torch.zeros((3, 3, 2, 65536), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="gridDim.y"):
+        tconv.conv2d_int8(x[..., :2].contiguous(), wn,
+                          torch.ones(65536, device=cuda_device),
+                          cout_per_block=1)
     xf = torch.zeros((1, 8, 8, 4096), device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         kops.conv2d(xf, torch.zeros((3, 3, 4096, 4), device=cuda_device))
