@@ -34,8 +34,13 @@ its route picks, each kernel has its own record in the kernels line
 on both kernels by the profiler's device clock beside the rule's choice,
 and the served paths assert the per-kernel counts (a prefill's
 projections all take the tensor-core tile kernel, CNet's dense layers the
-split-K kernel). ``flash_attention`` is bounded by the arithmetic of its
-3xTF32 design at the dense TF32 rate.
+split-K kernel). The split-K shapes also print their device time by the
+profiler's clock (weights from HBM), and a second call with no memset
+between equals the first. ``flash_attention`` and ``ssd`` are bounded by
+the arithmetic of their 3xTF32 designs at the dense TF32 rate. An LM
+prefill caches the ``ssd`` kernel's final state: its profile must hold
+no per-position state scan, and its cached state matches the CPU
+engine's within 1e-4.
 
 The launch counters show that each path ran its kernels (counts are set
 to 0 just before a path is driven and read just after); a profiler pass
@@ -43,11 +48,12 @@ breaks each path's device time down by kernel. Any failed phase makes the
 exit code non-zero; the last line is a JSON verdict only on success.
 
     python3 chip_smoke.py --conv-only [SRC]
+    python3 chip_smoke.py --ssd-splitk-only [SRC]
 
-builds the kernels of another checkout's ``src/`` (this one's by
-default) and runs only the three conv phases, so that two commits' conv
-kernels are timed on one card in one call (run parent, change, change,
-parent).
+build the kernels of another checkout's ``src/`` (this one's by
+default) and run only the three conv phases, or only the ssd phase and
+int8_matmul's split-K shapes, so that two commits' kernels are timed on
+one card in one call (run parent, change, change, parent).
 
 Needs a CUDA card and the repository's ``src/`` beside this file. Imports
 nothing of the JAX package.
@@ -261,9 +267,14 @@ def _print_case(c):
 
 @phase("int8_matmul vs plain, each shape on the kernel its route picks "
        "(CNet fc1 and head at B=16; the LM's prefill projections at B=4 x "
-       "2048 positions and decode head at 4 lanes; prepacked: fc1 and head "
-       "in their tuned layouts, the LM head at one prompt)")
-def matmul_phase(torch, gen, flush):
+       "2048 positions, decode head and down_proj at 4 lanes; ESPERTA's "
+       "K = 3, N = 1; prepacked: fc1 and head in their tuned layouts, the "
+       "LM head at one prompt)")
+def matmul_phase(torch, gen, flush, only=None):
+    """Each shape on the kernel its route picks (``only``: the shapes of
+    one route). Split-K shapes also print their device time by the
+    profiler's clock, each call on its own weight copy (from HBM), and a
+    second call's output, with no memset between, equals the first."""
     from repro_torch.kernels import int8_matmul as mm
     from repro_torch.kernels import ops
     from repro_torch.kernels.epilogue import pad_channel_params
@@ -282,9 +293,14 @@ def matmul_phase(torch, gen, flush):
             (4 * 2048, 4096, 2048, None, None, None),
             (4 * 2048, 2048, 32000, None, None, None),
             (LM_SLOTS, 2048, 32000, None, None, None),
+            (LM_SLOTS, 4096, 2048, None, None, None),
+            (BATCH, 3, 1, "sigmoid", None, None),
             (BATCH, 32769, 92, "relu", 0.0123456789, (1024, 96)),
             (BATCH, 92, 1, None, None, (96, 8)),
             (2048, 2048, 32000, None, None, (1024, 256))):
+        which = mm.route(m, k, n)
+        if only is not None and which != only:
+            continue
         big = m * n > 1 << 24
         x = torch.randint(-127, 128, (m, k), generator=gen,
                           dtype=torch.int8).to(dev)
@@ -302,7 +318,6 @@ def matmul_phase(torch, gen, flush):
             wk = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
             wsk, bk_ = pad_channel_params(ws, b, np_ - n)
             tiles = dict(bm=BATCH, bn=bn, bk=bk, prepacked=True, n_out=n)
-        which = mm.route(m, k, n)
         before = dict(ops.route_counts())
         out = mm.int8_matmul(x, wk, xs, wsk, bk_, act=act, requant_scale=rq,
                              **tiles)
@@ -313,6 +328,13 @@ def matmul_phase(torch, gen, flush):
             err = close(torch, out, ref, 1e-6)
         else:
             err = exact(torch, out, ref)
+        dev_us = None
+        if which == "splitk":
+            again = mm.int8_matmul(x, wk, xs, wsk, bk_, act=act,
+                                   requant_scale=rq, **tiles)
+            exact(torch, again, out)
+            dev_us = weight_cold_us(torch, lambda wi: mm.int8_matmul(
+                x, wi, xs, wsk, bk_, act=act, requant_scale=rq, **tiles), wk)
         t = device_ms(torch, lambda: mm.int8_matmul(
             x, wk, xs, wsk, bk_, act=act, requant_scale=rq, **tiles),
             10 if big else 50, flush)
@@ -342,15 +364,44 @@ def matmul_phase(torch, gen, flush):
                           plain_ms=tp, library_ms=tl, bound_ms=bms,
                           bound_by=by))
         _print_case(cases[-1])
+        if dev_us is not None:
+            print(f"     device_us={_fmt(dev_us)} (profiler, weights from "
+                  f"HBM); a second call, no memset between: bit-exact")
     print("   library_ms: torch._int_mm on [17+,K8]x[K8,N8], the matmul only; "
           "sigmoid held at rtol 1e-6, the rest bit-exact")
+    if only in (None, "splitk"):
+        memsets = splitk_memsets(torch, mm)
+        # this tree's split-K launches no memset (a compared checkout may)
+        assert only is not None or not memsets, memsets
     # one TPU kernel, two CUDA kernels chosen by shape (kernels/
     # int8_matmul.py: route): one record each, named as the route counters
     return [_kernel_record(f"int8_matmul:{r}", f"src/repro_torch/csrc/{src}",
                            TPU_KERNELS["int8_matmul"],
                            [c for c in cases if c["route"] == r])
             for r, src in (("tile", "int8_matmul_tile.cu"),
-                           ("splitk", "int8_matmul.cu"))]
+                           ("splitk", "int8_matmul.cu"))
+            if only in (None, r)]
+
+
+def splitk_memsets(torch, mm):
+    """The device events of two split-K fc1 calls in a row: the kernel
+    alone, no memset (printed for a tree whose wrapper zeroes a scratch
+    per call too)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones((BATCH, 32769), dtype=torch.int8, device="cuda")
+    w = torch.ones((32769, 92), dtype=torch.int8, device="cuda")
+    xs, ws = torch.ones(BATCH, device="cuda"), torch.ones(92, device="cuda")
+    mm.int8_matmul(x, w, xs, ws)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            mm.int8_matmul(x, w, xs, ws)
+        torch.cuda.synchronize()
+    rows = device_rows(torch, prof)
+    print(f"   device events of two split-K fc1 calls: "
+          f"{[(key[:40], count) for _, count, key in rows]}")
+    return [key for _, _, key in rows if "memset" in key.lower()]
 
 
 @contextlib.contextmanager
@@ -364,11 +415,12 @@ def forced_route(mm, which):
         mm.route = rule
 
 
-def per_call_device_us(torch, calls):
+def per_call_device_us(torch, calls, show=False):
     """Device time per call in us (torch.profiler: every device event the
-    calls launch, split-K's scratch fill included), each call once; the
-    host's launch work between calls is not counted. None when the
-    profiler recorded no device time (the tracer, not the port)."""
+    calls launch, a scratch fill included), each call once; the host's
+    launch work between calls is not counted. None when the profiler
+    recorded no device time (the tracer, not the port). ``show`` prints
+    each event's share."""
     from torch.profiler import ProfilerActivity, profile
     calls[0]()
     torch.cuda.synchronize()
@@ -378,7 +430,26 @@ def per_call_device_us(torch, calls):
             c()
         torch.cuda.synchronize()
     rows = device_rows(torch, prof)
+    if show:
+        for dev_us, count, key in rows:
+            print(f"     {dev_us / len(calls):10.2f} us/call  "
+                  f"x{count // len(calls)} {key[:60]}")
     return sum(r[0] for r in rows) / len(calls) if rows else None
+
+
+def weight_cold_us(torch, call, w):
+    """Device us per ``call(w_i)`` by the profiler, each call on its own
+    copy of the weights ``w``, as many copies as fill 128 MB (16 at least,
+    1024 at most), so that they come from HBM as in a served step, where
+    the other layers' weights evict them."""
+    k, n = w.shape
+    copies = max(16, min(1024, -(-(128 << 20) // (k * n))))
+    w_copies = w.expand(copies, k, n).contiguous()
+    try:
+        return per_call_device_us(torch, [(lambda wi=wi: call(wi))
+                                          for wi in w_copies])
+    finally:
+        del w_copies
 
 
 def conv_device_ms(torch, fn, n: int = 20):
@@ -427,16 +498,13 @@ def route_phase(torch, gen, flush):
                           dtype=torch.int8).to(dev)
         w = torch.randint(-127, 128, (k, n), generator=gen,
                           dtype=torch.int8).to(dev)
-        w_copies = w.expand(copies, k, n).contiguous()
         xs, ws = torch.ones(m, device=dev), torch.ones(n, device=dev)
         us = {}
         for r in ("tile", "splitk"):
             flush.zero_()
             with forced_route(mm, r):
-                us[r] = per_call_device_us(torch, [
-                    (lambda wi=wi: mm.int8_matmul(x, wi, xs, ws))
-                    for wi in w_copies])
-        del w_copies
+                us[r] = weight_cold_us(
+                    torch, lambda wi: mm.int8_matmul(x, wi, xs, ws), w)
         rule = mm.route(m, k, n)
         if None in us.values():
             print(f"   [{m},{k}]x[{k},{n}]: the profiler recorded no device "
@@ -695,6 +763,11 @@ def flash_phase(torch, gen, flush):
 @phase("ssd vs plain (the LM's prefill shape, S not a multiple of the "
        "chunk, a split run carrying init_state)")
 def ssd_phase(torch, gen, flush):
+    """Bounded by the design's arithmetic: every product as 3xTF32 on the
+    tensor cores at the dense TF32 rate (the fp32 SIMT bound is printed
+    for information). ``device_ms`` is the profiler's device time of one
+    call (its three launches), the mean of 10 back to back: the inputs
+    (279 MB at the served shape) do not stay in L2."""
     from repro_torch.kernels import ssd as sd
     dev = "cuda"
     cases = []
@@ -720,6 +793,8 @@ def ssd_phase(torch, gen, flush):
                       20, flush)
         tp = device_ms(torch, lambda: sd.ssd_plain(x, B_, C_, dt, A, None,
                                                    chunk), 5, flush)
+        us = per_call_device_us(torch, [lambda: sd.ssd(
+            x, B_, C_, dt, A, chunk=chunk)] * 10, show=True)
         # the work the function needs: C B^T and M x on and below each
         # chunk's diagonal (L is lower-triangular), then C state^T and
         # the state update; the full Q x Q square is printed only as
@@ -729,14 +804,20 @@ def ssd_phase(torch, gen, flush):
         square = b * h * n_chunks * (2.0 * q * q * (n + p) + 4.0 * q * p * n)
         nbytes = 4 * (2 * b * s * h * p + 2 * b * s * n + b * s * h + h
                       + b * h * p * n)
-        bms, by = bound_ms(nbytes, ops, PEAK_FP32_OPS_S)
+        # the design does each product three times (3xTF32) on the tensor
+        # cores: that arithmetic at the dense TF32 rate
+        bms, by = bound_ms(nbytes, 3.0 * ops, PEAK_TF32_OPS_S)
+        simt, _ = bound_ms(nbytes, ops, PEAK_FP32_OPS_S)
         cases.append(dict(shape=f"B={b} S={s} H={h} P={p} N={n} Q={q}",
                           err=err, ms=t, plain_ms=tp, library_ms=None,
                           bound_ms=bms, bound_by=by))
         _print_case(cases[-1])
-        print(f"     {ops / 1e9:.2f} GFLOP on and below the diagonal "
-              f"(the bound; {square / 1e9:.2f} GFLOP over the full Q x Q "
-              f"square), {nbytes / 1e6:.1f} MB")
+        print(f"     device_ms={_fmt(None if us is None else us / 1e3)} "
+              f"(profiler); {ops / 1e9:.2f} GFLOP on and below the "
+              f"diagonal ({3 * ops / 1e9:.2f} as 3xTF32; "
+              f"{square / 1e9:.2f} GFLOP over the full Q x Q square), "
+              f"{nbytes / 1e6:.1f} MB; for information, the fp32 SIMT "
+              f"bound: {simt:.4f} ms")
     # a split run: two halves with the carried state equal the whole run
     x, B_, C_, dt, A = inputs(4, 2048, 64, 64, 64)
     y, fin = sd.ssd(x, B_, C_, dt, A)
@@ -754,6 +835,7 @@ def ssd_phase(torch, gen, flush):
           f"whole run and the plain version")
     cases[0]["err"] = max(cases[0]["err"], err)
     print("   tolerance 1e-4 (abs and rel) against the plain version; "
+          "bound: 3 x the products at 495 TFLOP/s dense TF32; "
           "library_ms: none (PyTorch has no SSD scan)")
     return _kernel_record("ssd", "src/repro_torch/csrc/ssd.cu",
                           TPU_KERNELS["ssd"], cases)
@@ -976,6 +1058,11 @@ def lm_reference_phase(torch, lm):
         exact(torch, lms["card"].caches["attn"][w][0, :lm.seq_len].cpu(),
               lms["cpu"].caches["attn"][w][0, :lm.seq_len])
     print("   prefill K/V cache codes and f16 scales: bit-exact")
+    # the SSD state the commit cached: the kernel's final state
+    err = close(torch, lms["card"].caches["ssm"]["state"][0].cpu(),
+                lms["cpu"].caches["ssm"]["state"][0], 1e-4)
+    print(f"   prefill SSD cache state (the ssd kernel's final state): "
+          f"max |diff| {err:.3g} card vs CPU, within 1e-4")
     for _ in range(LM_REF_STEPS):
         hidden = steps[-1]["cpu"][0].hidden
         steps.append({n: run(n, lambda e: e.decode_step(hidden, slot))
@@ -1039,11 +1126,19 @@ def lm_profile_phase(torch, lm):
             print(f"   {kind}: profiler recorded no device time: "
                   f"not measured")
             continue
+        n_launch = sum(r[1] for r in rows)
         print(f"   one {kind} (B={LM_SLOTS}): wall {wall * 1e3:.3f} ms, "
               f"device busy {busy * 1e3:.3f} ms, idle share "
-              f"{1 - busy / wall:.3f}")
+              f"{1 - busy / wall:.3f}, {n_launch} device events")
         for dev_us, count, key in rows[:12]:
             print(f"   {dev_us / 1e3:9.4f} ms  x{count:<5d} {key[:70]}")
+        if kind == "prefill":
+            # the commit caches the kernel's state: no per-position scan
+            # (which launched an exp per position, 2048 a prefill)
+            n_exp = sum(ev.count for ev in prof.key_averages()
+                        if ev.key == "aten::exp")
+            print(f"   aten::exp calls in the prefill: {n_exp}")
+            assert n_exp < 64, n_exp
         out[kind] = busy
     for r in ids:
         lm.release_slot(r)
@@ -1234,15 +1329,18 @@ def lm_tuned_phase(torch, lm):
     return counts
 
 
-def conv_only(torch, src: Path) -> int:
-    """Build ``src``'s kernels and run the three conv phases only."""
+def only(torch, src: Path, phases) -> int:
+    """Build ``src``'s kernels and run ``phases`` only (a phase's extra
+    arguments ride in a tuple beside it)."""
     records = []
     if build_phase() is not None:
         gen = torch.Generator().manual_seed(0)
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-        for ph in (conv_phase, conv_blocks_phase, conv_f32_phase):
-            rec = ph(torch, gen, flush)
-            if rec is not None:
+        for ph, *extra in phases:
+            rec = ph(torch, gen, flush, *extra)
+            if isinstance(rec, list):
+                records.extend(rec)
+            elif rec is not None:
                 records.append(rec)
     print(json.dumps({"kernels": records, "src": str(src)}), flush=True)
     print(gpu_line(), flush=True)
@@ -1257,8 +1355,12 @@ def main() -> int:
     ap.add_argument("--conv-only", nargs="?", const=str(SRC), metavar="SRC",
                     help="build SRC's kernels (a checkout's src/, this "
                     "one's by default) and run only the conv phases")
+    ap.add_argument("--ssd-splitk-only", nargs="?", const=str(SRC),
+                    metavar="SRC", help="the same for the ssd phase and "
+                    "int8_matmul's split-K shapes")
     args = ap.parse_args()
-    src = SRC if args.conv_only is None else Path(args.conv_only).resolve()
+    picked = args.conv_only or args.ssd_splitk_only
+    src = SRC if picked is None else Path(picked).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke.py: {src}/repro_torch not found",
               file=sys.stderr)
@@ -1274,7 +1376,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.conv_only is not None:
-        return conv_only(torch, src)
+        return only(torch, src, [(conv_phase,), (conv_blocks_phase,),
+                                 (conv_f32_phase,)])
+    if args.ssd_splitk_only is not None:
+        return only(torch, src, [(ssd_phase,), (matmul_phase, "splitk")])
 
     records = []
     if build_phase() is not None:

@@ -10,10 +10,11 @@ planned workload, as the reference's engine (src/repro/core/lm.py):
   exposes its KV/state capture points as outputs (``k_heads`` /
   ``v_heads`` / ``ssm_heads`` / ``b_proj`` / ``dt``); the per-rung
   *commit* quantizes K/V (``lm_quant.quantize_kv``: int8 codes + f16
-  per-token-head scale planes) into the request's KV slot, and folds the
-  SSD state into the slot's state buffer with the reference's sequential
-  per-position scan (not the kernel's final state), so the cached state
-  is the reference's.
+  per-token-head scale planes) into the request's KV slot, and writes
+  the SSD kernel's final state (which the plan returns beside its
+  outputs, ``plan.ssd_state_key``) into the slot's state buffer. The
+  reference recomputes that state with a per-position ``lax.scan``; the
+  chunked kernel's state agrees with it to the SSD tolerance (1e-4).
 
 * **Decode** is a per-rung single-token program over the SAME rewritten
   plan (same ``QuantNodePlan`` constants, same fused nodes, same live
@@ -62,7 +63,7 @@ from repro_torch.core import memory as memory_mod
 from repro_torch.core.engine import Engine
 from repro_torch.core.opgraph import RANDOM_OPS, base_op
 from repro_torch.core.plan import (BATCHED_OP_IMPLS, _run_fused_f32,
-                                   _run_quantized)
+                                   _run_quantized, ssd_state_key)
 from repro_torch.kernels.epilogue import f32
 
 NEG_INF = -2.0e38                      # matches kernels/flash_attention.py
@@ -103,8 +104,9 @@ class LMEngine:
         self.max_new_tokens = int(max_new_tokens)
         self.n_slots = int(n_slots)
 
-        # capture-point bookkeeping: every attention k/v input and every
-        # ssd x/B/dt input must be a graph output (prefill visibility)
+        # capture-point bookkeeping: every attention k/v input must be a
+        # graph output (prefill visibility); the ssd state comes from the
+        # kernel
         self._attn_nodes = [n for n in graph.order
                             if base_op(graph.nodes[n]) == "attention"]
         self._ssd_nodes = [n for n in graph.order
@@ -113,14 +115,9 @@ class LMEngine:
         for n in self._attn_nodes:
             missing += [i for i in graph.nodes[n].inputs[1:3]
                         if i not in graph.outputs]
-        for n in self._ssd_nodes:
-            node = graph.nodes[n]
-            missing += [i for i in (node.inputs[0], node.inputs[1],
-                                    node.inputs[3])
-                        if i not in graph.outputs]
         if missing:
             raise ValueError(
-                f"KV/state capture inputs must be graph outputs: {missing}")
+                f"KV capture inputs must be graph outputs: {missing}")
 
         # the static KV arena: charged to the plan's budget + signature
         hw = energy_mod.BACKEND_HW[backend]
@@ -210,7 +207,7 @@ class LMEngine:
                           hidden=hidden.cpu().numpy())
 
     def _commit(self, outs, slot_ids: torch.Tensor, caches) -> None:
-        graph, params = self.plan.graph, self.plan.params
+        graph = self.plan.graph
         s = self.seq_len
         for n in self._attn_nodes:
             node = graph.nodes[n]
@@ -222,16 +219,7 @@ class LMEngine:
                 sc[slot_ids, :s] = scale.to(torch.float16)
                 sc[slot_ids, s:] = 1.0
         for n in self._ssd_nodes:
-            node = graph.nodes[n]
-            xh = outs[node.inputs[0]].float()           # [B, S, H, P]
-            bp = outs[node.inputs[1]].float()           # [B, S, N]
-            dt = outs[node.inputs[3]].float()           # [B, S, H]
-            a = params[n]["A"]
-            state = torch.zeros((xh.shape[0],) + caches[n]["state"].shape[1:],
-                                dtype=torch.float32, device=self.device)
-            for t in range(xh.shape[1]):
-                state = _ssd_step(state, xh[:, t], bp[:, t], dt[:, t], a)
-            caches[n]["state"][slot_ids] = state
+            caches[n]["state"][slot_ids] = outs[ssd_state_key(n)]
         caches["pos"][slot_ids] = s
 
     # -- decode --------------------------------------------------------------

@@ -130,11 +130,19 @@ def _attention_b(xs, a, config=None):
 
 
 def _ssd_b(xs, p, a, config=None):
+    """The batched SSD scan: (y [B,S,H,P], final state [B,H,P,N]), both
+    from one kernel call at the rung's chunk (``config`` carries the tuned
+    one)."""
     x, B_, C_, dt = (t.float() for t in xs)
     chunk = (config.chunk if config is not None and config.chunk
              else a.get("chunk", 256))
-    y, _ = kops.ssd(x, B_, C_, dt, p["A"], chunk=chunk)
-    return y
+    return kops.ssd(x, B_, C_, dt, p["A"], chunk=chunk)
+
+
+def ssd_state_key(node: str) -> str:
+    """The batched program's output name for ``ssd`` node ``node``'s final
+    state (the LM commit caches it)."""
+    return f"{node}/final_state"
 
 
 def _concat_axis(a) -> int:
@@ -151,7 +159,7 @@ BATCHED_OP_IMPLS: Dict[str, Callable] = {
     "avgpool3d": lambda x, p, a, rng: _pool_b(x[0], a, 3, "avg"),
     "dense": lambda x, p, a, rng: _dense_b(x[0], p, a),
     "attention": lambda x, p, a, rng: _attention_b(x, a),
-    "ssd": lambda x, p, a, rng: _ssd_b(x, p, a),
+    "ssd": lambda x, p, a, rng: _ssd_b(x, p, a)[0],
     "reshape": lambda x, p, a, rng: _reshape_b(x[0], a),
     "flatten": lambda x, p, a, rng: x[0].reshape(x[0].shape[0], -1),
     "relu": lambda x, p, a, rng: torch.clamp_min(x[0], 0.0),
@@ -497,7 +505,9 @@ class ExecutionPlan:
         ``weights`` is the live :attr:`weight_arena` dict (prepacked
         entries arrive tile-aligned); ``rngs`` carries one seed pair per
         sample for random ops (none is ported yet). ``tuning`` (node ->
-        TuningDecision, one batch rung) binds the autotuned configs."""
+        TuningDecision, one batch rung) binds the autotuned configs. The
+        result holds the graph outputs and, under :func:`ssd_state_key`,
+        each ``ssd`` node's final state."""
         graph, params = self.graph, self.params
         qplans, fused_into = self.qplans, self.fused_into
         packed = self.packed
@@ -506,6 +516,7 @@ class ExecutionPlan:
         def f(inputs: Dict[str, torch.Tensor], rngs: torch.Tensor,
               weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             vals: Dict[str, torch.Tensor] = {}
+            states: Dict[str, torch.Tensor] = {}    # ssd final states
             batch = rngs.shape[0]
             for name in graph.graph_inputs:
                 vals[name] = inputs[name].float()
@@ -536,12 +547,12 @@ class ExecutionPlan:
                         vals[name] = _attention_b(xs, node.attrs, cfg)
                         continue
                     if node.op == "ssd":
-                        vals[name] = _ssd_b(xs, params.get(name, {}),
-                                            node.attrs, cfg)
+                        vals[name], states[ssd_state_key(name)] = _ssd_b(
+                            xs, params.get(name, {}), node.attrs, cfg)
                         continue
                     vals[name] = BATCHED_OP_IMPLS[node.op](
                         xs, params.get(name, {}), node.attrs, None)
-            return {o: vals[o] for o in graph.outputs}
+            return {**{o: vals[o] for o in graph.outputs}, **states}
 
         return f
 

@@ -1,6 +1,7 @@
 // Shared pieces of the port's CUDA kernels: the plain-C error hook every
 // library exports, the fp32 epilogue tail the int8 kernels apply, and the
-// 3xTF32 split and TF32 mma that flash_attention and the fp32 conv use.
+// 3xTF32 split and TF32 mma that flash_attention, ssd and the fp32 conv
+// use.
 //
 // Rounding contract (kernels/epilogue.py holds the plain PyTorch twin):
 //   * every multiply and add is an explicit round-to-nearest intrinsic
@@ -61,4 +62,26 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[c0 + j] += a x b_j for eight column groups in 3xTF32, where b_j's
+// two entries are (x[j], y[j]): the small terms of all eight first
+template <int N>
+__device__ __forceinline__ void mma8_3xtf32(float (&c)[N][4], int c0,
+                                            const uint32_t (&ab)[4],
+                                            const uint32_t (&as)[4],
+                                            const float (&x)[8],
+                                            const float (&y)[8]) {
+  uint32_t bb[8][2], bs[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    split_tf32(x[j], bb[j][0], bs[j][0]);
+    split_tf32(y[j], bb[j][1], bs[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) mma_tf32(c[c0 + j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) mma_tf32(c[c0 + j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) mma_tf32(c[c0 + j], ab, bb[j][0], bb[j][1]);
 }

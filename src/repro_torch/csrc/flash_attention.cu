@@ -84,28 +84,6 @@ struct Smem {
   static constexpr int kBytes = (kQ + 2 * kK + 2 * kV) * 4;
 };
 
-// c[c0 + j] += a x b_j for eight column groups in 3xTF32, where b_j's
-// two entries are (x[j], y[j]): the small terms of all eight first
-template <int N>
-__device__ __forceinline__ void mma8_3xtf32(float (&c)[N][4], int c0,
-                                            const uint32_t (&ab)[4],
-                                            const uint32_t (&as)[4],
-                                            const float (&x)[8],
-                                            const float (&y)[8]) {
-  uint32_t bb[8][2], bs[8][2];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    split_tf32(x[j], bb[j][0], bs[j][0]);
-    split_tf32(y[j], bb[j][1], bs[j][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) mma_tf32(c[c0 + j], as, bb[j][0], bb[j][1]);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) mma_tf32(c[c0 + j], ab, bs[j][0], bs[j][1]);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) mma_tf32(c[c0 + j], ab, bb[j][0], bb[j][1]);
-}
-
 // 16 bytes from global to shared memory, zero-filled when !in
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool in) {

@@ -7,9 +7,14 @@ function, and :func:`route` chooses between them by shape:
 
 * **split-K** (``csrc/int8_matmul.cu``), for a small batch M against a long
   K (CNet's fc1: [16, 32769] x [32769, 92]), where the product is bound by
-  reading the weights once: K is split across blocks, int32 partials are
-  added atomically (exact, order-free) into a zeroed scratch, and the last
-  block of each output tile applies the epilogue. M / 16 row tiles ride on
+  reading the weights once: each block streams its slice of
+  ``SPLITK_K_ROWS`` weight rows into shared memory with 16-byte copies
+  (all in flight at once), its warps split that K, and the block's int32
+  sums are added atomically (exact, order-free) into a persistent scratch;
+  the last block of each output tile applies the epilogue and zeroes the
+  sums it consumed, so the scratch is zeroed once, when it is allocated,
+  and no call launches a memset. A K of at most ``SPLITK_K_ROWS`` is one
+  block per tile and needs no scratch. M / 16 row tiles ride on
   ``gridDim.z``, so M is capped at ``ROWS_PER_BLOCK * MAX_GRID_Z``.
 * **tile** (``csrc/int8_matmul_tile.cu``), for the LM's per-position
   projections, which fold batch x positions into M (8192 at a B=4
@@ -50,7 +55,7 @@ Counters: ``launches`` counts every CUDA launch; ``launches_tile`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -66,6 +71,9 @@ launches_tile = 0
 launches_splitk = 0
 
 ROWS_PER_BLOCK = 16             # the split-K kernel's row tile (kMT)
+SPLITK_K_ROWS = 256             # its K rows per block (kKB)
+SPLITK_COLS = 128               # its columns per block (kBN)
+SPLITK_WARPS = 8                # its warps, which split a block's K
 MAX_GRID_Z = 65535              # CUDA's gridDim.z cap: row tiles per launch
 TILE_M = TILE_N = 128           # the tile kernel's output tile (N > 64)
 MAX_GRID_X = 2 ** 31 - 1        # CUDA's gridDim.x cap: tiles per launch
@@ -93,6 +101,37 @@ def route(m: int, k: int, n: int) -> str:
             else "splitk")
 
 
+def splitk_grid(m: int, k: int, n: int) -> Tuple[int, int, int]:
+    """The split-K kernel's grid: (K blocks, column tiles, row tiles)."""
+    return (max(1, -(-k // SPLITK_K_ROWS)), -(-n // SPLITK_COLS),
+            -(-m // ROWS_PER_BLOCK))
+
+
+def splitk_scratch_words(m: int, k: int, n: int) -> int:
+    """int32 words of zeroed scratch a split-K launch needs: the [M, N]
+    sums and one ticket per output tile, or none when one block covers
+    K."""
+    kc, nt, mt = splitk_grid(m, k, n)
+    return 0 if kc == 1 else m * n + nt * mt
+
+
+# the split-K kernel's scratch on each device: zero between calls (the
+# kernel's last blocks write back the zeros), replaced by a larger zeroed
+# buffer when a launch needs more
+_SPLITK_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+
+
+def _splitk_scratch(device: torch.device, words: int
+                    ) -> Optional[torch.Tensor]:
+    if words == 0:
+        return None
+    buf = _SPLITK_SCRATCH.get(device)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int32, device=device)
+        _SPLITK_SCRATCH[device] = buf
+    return buf
+
+
 def _aligned_block(dim: int, target: int) -> int:
     """Full ``target`` tiles when the dim is big enough, otherwise the dim
     rounded up to a multiple of 8."""
@@ -105,7 +144,7 @@ def heuristic_blocks(m: int, k: int, n: int,
                      bm: int = 128, bn: int = 128, bk: int = 128):
     """The reference's default block choice for an [M, K] x [K, N] matmul,
     kept for the autotuner's candidate pools (the CUDA kernels' own tiles
-    are fixed: split-K 16 rows x 128 columns x 128-deep K chunks, tile
+    are fixed: split-K 16 rows x 128 columns x 256-deep K slices, tile
     128 x 128 x 128-deep K stages)."""
     return (min(bm, _aligned_block(m, bm)),
             min(bn, _aligned_block(n, bn)),
@@ -193,6 +232,10 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
             f"int8_matmul: M={m} needs {-(-m // ROWS_PER_BLOCK)} row tiles "
             f"of {ROWS_PER_BLOCK}; one launch takes at most {MAX_GRID_Z} "
             f"(M <= {ROWS_PER_BLOCK * MAX_GRID_Z})")
+    if which == "splitk" and -(-n // SPLITK_COLS) > MAX_GRID_Z:
+        raise ValueError(
+            f"int8_matmul: N={n} needs {-(-n // SPLITK_COLS)} column tiles "
+            f"of {SPLITK_COLS}; one launch takes at most {MAX_GRID_Z}")
     tiles = -(-m // TILE_M) * -(-n // TILE_N)
     if which == "tile" and tiles > MAX_GRID_X:
         raise ValueError(
@@ -220,11 +263,7 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
         launches_tile += 1
     else:
         lib = build.library("int8_matmul")
-        lib.int8_matmul_scratch_words.restype = ctypes.c_longlong
-        lib.int8_matmul_scratch_words.argtypes = [ctypes.c_int,
-                                                  ctypes.c_int]
-        scratch = torch.zeros(lib.int8_matmul_scratch_words(m, n),
-                              dtype=torch.int32, device=x_q.device)
+        scratch = _splitk_scratch(x_q.device, splitk_scratch_words(m, k, n))
         fn = lib.int8_matmul
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
         rc = fn(build.ptr(x_q), build.ptr(w_q), build.ptr(x_scale),

@@ -1,10 +1,14 @@
 """Mamba-2 SSD (state-space duality) chunked scan, fp32.
 
 Replaces the Pallas kernel ``ssd`` (src/repro/kernels/ssd.py, ``_kernel``)
-with ``csrc/ssd.cu``: one block per (head, batch) walks the chunks in a
-loop that takes the place of the TPU's sequential grid axis, with the
-[P, N] state resident in shared memory. At the served shape the work is
-bound by the fp32 rate, not by memory (see the source's note).
+with ``csrc/ssd.cu``: the TPU walks the chunks of each (batch, head) on a
+sequential grid axis with the [P, N] state in VMEM; here the chunks run
+in parallel. One call is three launches: each chunk's own state
+contribution (a [P, Q] x [Q, N] product per (chunk, head, batch)), a pass
+over the chunks that carries the state and writes the final state, and
+``y`` per 64-row strip of each chunk. The products run as 3xTF32
+``mma.sync`` on the tensor cores, and arithmetic bounds the work at the
+served shape (see the source's note).
 
 Per chunk of ``Q`` positions (``Q`` is ``chunk``, or the largest divisor
 of ``S`` below it, as the reference chooses), shared by the kernel and
@@ -29,8 +33,9 @@ launches = 0
 
 MAX_P = 64
 MAX_N = 128
+MAX_GRID_YZ = 65535             # heads ride on gridDim.y, batch on .z
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def chunk_size(s: int, chunk: int) -> int:
@@ -102,20 +107,25 @@ def ssd(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     global launches
     b, s, h, p = x.shape
     n = B_.shape[-1]
-    if p > MAX_P or n > MAX_N:
-        raise ValueError(f"ssd: P={p} (<= {MAX_P}) and N={n} (<= {MAX_N})")
+    if p > MAX_P or n > MAX_N or max(b, h) > MAX_GRID_YZ:
+        raise ValueError(f"ssd: P={p} (<= {MAX_P}), N={n} (<= {MAX_N}), "
+                         f"B={b} and H={h} (<= {MAX_GRID_YZ})")
     q = chunk_size(s, chunk)
     x, B_, C_, dt, A = (t.float().contiguous() for t in (x, B_, C_, dt, A))
     if init_state is not None:
         init_state = init_state.float().contiguous()
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    # the per-chunk states and each chunk's last cum (no zeroing needed)
+    scratch = torch.empty(b * h * (s // q) * (p * n + 1),
+                          dtype=torch.float32, device=x.device)
     lib = build.library("ssd")
     fn = lib.ssd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     rc = fn(build.ptr(x), build.ptr(B_), build.ptr(C_), build.ptr(dt),
             build.ptr(A), build.ptr(init_state), build.ptr(y),
-            build.ptr(final), b, s, h, p, n, q, build.stream(x))
+            build.ptr(final), build.ptr(scratch), b, s, h, p, n, q,
+            build.stream(x))
     build.check(lib, rc, "ssd")
     launches += 1
     return y, final

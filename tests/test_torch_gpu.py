@@ -366,6 +366,9 @@ SSD_CASES = [
     (1, 512, 4, 64, 64, 256, True),
     (1, 128, 2, 16, 128, 64, False),     # the N <= 128 instantiation
     (2, 37, 2, 8, 8, 256, True),         # prime S: one chunk of 37
+    (4, 2048, 64, 64, 64, 256, False),   # the LM's served prefill
+    (1, 1000, 64, 64, 64, 256, False),   # chunk 250: ragged strips
+    (1, 1000, 64, 64, 64, 256, True),
 ]
 
 
@@ -406,6 +409,98 @@ def test_ssd_kernel_carries_init_state(cuda_device):
     torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=1e-4,
                                atol=1e-4)
     torch.testing.assert_close(fin2, fin, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_split_run_at_the_served_shape(cuda_device):
+    """The served prefill (B=4, S=2048, 64 heads of 64, N = 64) in two
+    halves with the carried state against the whole run and the plain
+    version of the second half."""
+    x, B_, C_, dt, A, _ = _ssd_inputs(4, 2048, 64, 64, 64, False, 21,
+                                      cuda_device)
+    y, fin = tssd.ssd(x, B_, C_, dt, A)
+    half = [slice(None, 1024), slice(1024, None)]
+    parts = [[t[:, sl] for t in (x, B_, C_, dt)] for sl in half]
+    y1, st = tssd.ssd(*parts[0], A)
+    y2, fin2 = tssd.ssd(*parts[1], A, st)
+    y2_p, fin2_p = tssd.ssd_plain(*parts[1], A, st)
+    for got, want in ((torch.cat([y1, y2], 1), y), (fin2, fin),
+                      (y2, y2_p), (fin2, fin2_p)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# the split-K kernel's shapes: CNet's fc1 and head (plain and in their
+# tuned prepacked layouts: K rows, row stride), the LM decode step's
+# K > 2048 product at 4 lanes, ESPERTA's K = 3, N = 1, ragged M in the
+# three staging modes (16-, 4- and 1-byte pieces), K at one and two
+# blocks, and the most rows one launch takes
+SPLITK_SHAPES = [
+    (16, 32769, 92, None), (16, 32769, 92, (33792, 96)),
+    (16, 92, 1, None), (16, 92, 1, (96, 8)), (4, 4096, 2048, None),
+    (16, 3, 1, None), (5, 3, 1, None), (33, 300, 144, None),
+    (31, 600, 132, None), (33, 300, 130, None), (3, 257, 7, None),
+    (17, 256, 64, None), (tmm.ROWS_PER_BLOCK * tmm.MAX_GRID_Z, 3, 1, None)]
+
+
+@pytest.mark.parametrize("m,k,n,packed", SPLITK_SHAPES)
+@pytest.mark.parametrize("act,requant", [("relu", REQUANT), (None, None),
+                                         ("sigmoid", None)])
+def test_split_k_kernel_is_bit_exact_twice_in_a_row(cuda_device, monkeypatch,
+                                                    m, k, n, packed, act,
+                                                    requant):
+    """Bit-exact against the plain version (sigmoid: 1e-6 relative), and
+    a second call right after the first (the persistent scratch, zeroed
+    again by the first call's last blocks, no memset) gives the same."""
+    monkeypatch.setattr(tmm, "route", lambda m, k, n: "splitk")
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    xs = torch.rand(m, generator=g) * 0.01 + 1e-3
+    ws = torch.rand(n, generator=g) * 0.01 + 1e-3
+    b = torch.randn(n, generator=g)
+    dev = [v.to(cuda_device) for v in (x, w, xs, ws, b)]
+    if packed is None:
+        args, kw = dev, {}
+    else:
+        kp, np_ = packed
+        wp = torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+        wsp, bp = pad_channel_params(ws, b, np_ - n)
+        args = [dev[0], wp.to(cuda_device), dev[2], wsp.to(cuda_device),
+                bp.to(cuda_device)]
+        kw = dict(bm=16, bn=np_, bk=kp, prepacked=True, n_out=n)
+    want = tmm.int8_matmul_plain(*dev, act, requant)
+    kops.reset_launch_counts()
+    for _ in range(2):
+        got = tmm.int8_matmul(*args, act=act, requant_scale=requant, **kw)
+        torch.cuda.synchronize()
+        if act == "sigmoid":
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got, want)
+    assert kops.route_counts()["splitk"] == 2
+
+
+def test_card_lm_prefill_state_matches_cpu(cuda_device):
+    """The SSD state a prefill caches (the kernel's final state) within
+    1e-4 of the CPU engine's (ssd_plain's), on the same weights,
+    calibration and prompts."""
+    cfg = tlm.DEFAULT_CONFIG
+    graph = tlm.build_graph(cfg)
+    cpu = Engine(graph, tlm.init_params(0, cfg), device="cpu")
+    cpu.calibrate([tlm.synthetic_input(np.random.default_rng(1), cfg)
+                   for _ in range(4)])
+    card = Engine(graph, cpu.params, device=cuda_device)
+    card.share_calibration(cpu)
+    x = tlm.synthetic_batch(np.random.default_rng(4), 3, cfg)["x"]
+    slots = np.array([1, 0, 2], np.int32)
+    for backend in ("accel", "flex"):
+        lms = [LMEngine(e, backend, n_slots=3, max_new_tokens=4)
+               for e in (cpu, card)]
+        for lm in lms:
+            lm.prefill(x, slots)
+        (name,) = lms[0]._ssd_nodes
+        torch.testing.assert_close(lms[1].caches[name]["state"].cpu(),
+                                   lms[0].caches[name]["state"], rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_card_lm_engine_matches_cpu_engine(cuda_device):
