@@ -49,11 +49,13 @@ exit code non-zero; the last line is a JSON verdict only on success.
 
     python3 chip_smoke.py --conv-only [SRC]
     python3 chip_smoke.py --ssd-splitk-only [SRC]
+    python3 chip_smoke.py --quantize-only [SRC]
 
 build the kernels of another checkout's ``src/`` (this one's by
-default) and run only the three conv phases, or only the ssd phase and
-int8_matmul's split-K shapes, so that two commits' kernels are timed on
-one card in one call (run parent, change, change, parent).
+default) and run only the three conv phases, only the ssd phase and
+int8_matmul's split-K shapes, or only the quantize phase, so that two
+commits' kernels are timed on one card in one call (run parent, change,
+change, parent).
 
 Needs a CUDA card and the repository's ``src/`` beside this file. Imports
 nothing of the JAX package.
@@ -97,6 +99,19 @@ LM_KERNELS = ("int8_matmul", "quantize_apply", "flash_attention", "ssd")
 TUNED_CNN_KERNELS = ("int8_matmul", "conv2d_int8", "conv2d_int8_cout_blocks",
                      "quantize_apply")
 TUNED_LM_KERNELS = ("int8_matmul", "flash_attention", "ssd")
+# the weight matrices calibration quantizes ([K, N], one quantize_apply
+# launch each): CNet's five, then the LM block's eleven at zamba2-1.2b
+# widths (models/lm.py: build_graph, ZAMBA2_1_2B)
+QUANTIZE_WEIGHTS = (
+    ("cnet", "conv0", 18, 48), ("cnet", "conv1", 432, 48),
+    ("cnet", "conv2", 432, 32), ("cnet", "fc1", 32769, 92),
+    ("cnet", "head", 92, 1),
+    ("lm", "emb", 2048, 2048), ("lm", "q_proj", 2048, 2048),
+    ("lm", "k_proj", 2048, 2048), ("lm", "v_proj", 2048, 2048),
+    ("lm", "out_proj", 2048, 2048), ("lm", "ssm_in", 2048, 4096),
+    ("lm", "b_proj", 2048, 64), ("lm", "c_proj", 2048, 64),
+    ("lm", "dt_proj", 2048, 64), ("lm", "down_proj", 4096, 2048),
+    ("lm", "head", 2048, 32000))
 # every pallas_call of the reference has a record in the kernels line
 # (int8_matmul one for each of its two CUDA kernels)
 TPU_KERNELS = {
@@ -227,10 +242,10 @@ def exact(torch, got, want) -> float:
 
 @phase("build: nvcc -gencode arch=compute_90a,code=sm_90a, one process per "
        "source")
-def build_phase():
+def build_phase(names=None):
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    built = build.build_all()
+    built = build.build_all(names)
     print(f"   built {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s wall")
     for name, b in built.items():
@@ -415,12 +430,9 @@ def forced_route(mm, which):
         mm.route = rule
 
 
-def per_call_device_us(torch, calls, show=False):
-    """Device time per call in us (torch.profiler: every device event the
-    calls launch, a scratch fill included), each call once; the host's
-    launch work between calls is not counted. None when the profiler
-    recorded no device time (the tracer, not the port). ``show`` prints
-    each event's share."""
+def profile_rows(torch, calls):
+    """The device events of ``calls``, each called once after a warm-up
+    call of the first (``device_rows``)."""
     from torch.profiler import ProfilerActivity, profile
     calls[0]()
     torch.cuda.synchronize()
@@ -429,7 +441,16 @@ def per_call_device_us(torch, calls, show=False):
         for c in calls:
             c()
         torch.cuda.synchronize()
-    rows = device_rows(torch, prof)
+    return device_rows(torch, prof)
+
+
+def per_call_device_us(torch, calls, show=False):
+    """Device time per call in us (torch.profiler: every device event the
+    calls launch, a scratch fill included), each call once; the host's
+    launch work between calls is not counted. None when the profiler
+    recorded no device time (the tracer, not the port). ``show`` prints
+    each event's share."""
+    rows = profile_rows(torch, calls)
     if show:
         for dev_us, count, key in rows:
             print(f"     {dev_us / len(calls):10.2f} us/call  "
@@ -682,26 +703,120 @@ def conv_f32_phase(torch, gen, flush):
                           TPU_KERNELS["conv2d"], cases)
 
 
-@phase("quantize_apply vs plain (the five CNet weight matrices)")
+def _cold_inputs(x, n: int = 8):
+    """``n`` or more inputs for back-to-back calls, cycling over copies of
+    ``x`` that fill 128 MB (at most 256), so that at the LM's shapes each
+    call reads its matrix from HBM, as calibration does (the head's 262 MB
+    alone exceeds the 50 MB L2)."""
+    k = min(256, max(1, -(-(128 << 20) // (4 * x.numel()))))
+    xs = [x] + [x.clone() for _ in range(k - 1)]
+    return [xs[i % k] for i in range(max(n, k))]
+
+
+def _calls(fn, inputs):
+    return [(lambda xi=xi: fn(xi)) for xi in inputs]
+
+
+def _us_sum(cases, key):
+    vals = [c[key] for c in cases]
+    return None if any(v is None for v in vals) else sum(vals)
+
+
+@phase("quantize_apply vs plain (the weights calibration quantizes: CNet's "
+       "five, the LM's eleven at zamba2-1.2b widths)")
 def quantize_phase(torch, gen, flush):
+    """Each weight shape: bit-exact to the plain version, the kernel's
+    device time by the profiler (HBM-cold matrices) beside its event time,
+    its byte bound, torch.quantize_per_channel's device time (a yardstick
+    of time: it may divide where the kernel multiplies by the reciprocal,
+    so a code can move by one) and the device time of the scale reduction
+    in front of the kernel (``quantize`` minus the kernel's events)."""
     from repro_torch.kernels import quantize as qz
     dev = "cuda"
+    lm_gen = torch.Generator(device=dev).manual_seed(17)
     cases = []
-    for m, n in ((18, 48), (432, 48), (432, 32), (32769, 92), (92, 1)):
-        x = torch.randn((m, n), generator=gen).to(dev)
+    for model, name, m, n in QUANTIZE_WEIGHTS:
+        if model == "cnet":
+            x = torch.randn((m, n), generator=gen).to(dev)
+        else:
+            x = torch.randn((m, n), generator=lm_gen, device=dev)
         scale = x.abs().amax(0) / 127.0 + 1e-12
+        before = qz.launches
         out = qz.quantize_apply(x, scale)
         torch.cuda.synchronize()
+        assert qz.launches == before + 1
         err = exact(torch, out, qz.quantize_apply_plain(x, scale))
-        t = device_ms(torch, lambda: qz.quantize_apply(x, scale), 50, flush)
-        tp = device_ms(torch, lambda: qz.quantize_apply_plain(x, scale), 20,
+        q2, s2 = qz.quantize(x)
+        exact(torch, s2, scale)
+        exact(torch, q2, out)
+        del q2, s2
+        t = device_ms(torch, lambda: qz.quantize_apply(x, scale), 20, flush)
+        tp = device_ms(torch, lambda: qz.quantize_apply_plain(x, scale), 5,
                        flush)
+        xs = _cold_inputs(x)
+        kern_us = per_call_device_us(torch, _calls(
+            lambda xi: qz.quantize_apply(xi, scale), xs))
+        rows = profile_rows(torch, _calls(qz.quantize, xs))
+        scale_us = (sum(us for us, _, key in rows
+                        if "quantize_apply" not in key) / len(xs)
+                    if rows else None)
+        # the yardstick: one PyTorch call computing the same codes
+        zeros = torch.zeros(n, dtype=torch.long, device=dev)
+        sd = scale.double()
+        lib_us, lib_note = None, ""
+        try:
+            lq = torch.quantize_per_channel(x, sd, zeros, 1, torch.qint8)
+            torch.cuda.synchronize()
+            moved = int((lq.int_repr() != out).sum())
+            lib_note = f"{moved} codes differ from the kernel's"
+            del lq
+            lib_us = per_call_device_us(torch, _calls(
+                lambda xi: torch.quantize_per_channel(
+                    xi, sd, zeros, 1, torch.qint8), xs))
+        except RuntimeError as e:
+            lib_note = f"refused: {str(e).splitlines()[0]}"
+        # for information, the card's streaming rate at this size: a
+        # device-to-device copy of x (8 bytes an element)
+        y = torch.empty_like(x)
+        copy_us = per_call_device_us(torch, _calls(y.copy_, xs))
+        del y
         nbytes = 4 * m * n + 4 * n + m * n
         bms, by = bound_ms(nbytes, 3.0 * m * n, PEAK_FP32_OPS_S)
-        cases.append(dict(shape=f"[{m},{n}]", err=err, ms=t, plain_ms=tp,
-                          library_ms=None, bound_ms=bms, bound_by=by))
-        _print_case(cases[-1])
-    print("   library_ms: none")
+        c = dict(shape=f"{model} {name} [{m},{n}]", model=model, err=err,
+                 event_ms=t, plain_ms=tp, bound_ms=bms, bound_by=by,
+                 kern_us=kern_us, lib_us=lib_us, scale_us=scale_us,
+                 copy_us=copy_us,
+                 ms=t if kern_us is None else kern_us / 1e3,
+                 library_ms=None if lib_us is None else lib_us / 1e3)
+        cases.append(c)
+        # (an older checkout's wrapper has no vector_width)
+        vw = getattr(qz, "vector_width", None)
+        print(f"   {c['shape']}: device_us={_fmt(kern_us)} "
+              f"bound_us={bms * 1e3:.4f} ({by}) "
+              f"quantize_per_channel_us={_fmt(lib_us)} "
+              f"scales_us={_fmt(scale_us)} copy_us={_fmt(copy_us)} "
+              f"event_ms={t:.4f} plain_ms={tp:.4f} "
+              f"vector_width={'n/a' if vw is None else vw(x, out)} "
+              f"max_abs_err={err}")
+        if lib_note:
+            print(f"     quantize_per_channel: {lib_note}")
+        del x, xs, out, scale
+    for model in ("lm", "cnet"):
+        sub = [c for c in cases if c["model"] == model]
+        print(f"   sum over {model}'s {len(sub)} weights: "
+              f"device_us={_fmt(_us_sum(sub, 'kern_us'))} "
+              f"bound_us={sum(c['bound_ms'] for c in sub) * 1e3:.4f} "
+              f"quantize_per_channel_us={_fmt(_us_sum(sub, 'lib_us'))} "
+              f"scales_us={_fmt(_us_sum(sub, 'scale_us'))} "
+              f"copy_us={_fmt(_us_sum(sub, 'copy_us'))} "
+              f"event_ms={sum(c['event_ms'] for c in sub):.4f}")
+    print("   device_us: the profiler's device time per call, each call on "
+          "its own copy of the matrix (from HBM); bound: 5 bytes an element "
+          "+ the scales at 3.35 TB/s; bit-exact to the plain version; "
+          "library: torch.quantize_per_channel(x, scale.double(), 0, axis 1, "
+          "qint8); copy_us: a device-to-device copy of x (8 bytes an "
+          "element), for information; the record's ms is the device time")
+    torch.cuda.empty_cache()
     return _kernel_record("quantize_apply", "src/repro_torch/csrc/quantize.cu",
                           TPU_KERNELS["quantize_apply"], cases)
 
@@ -1329,11 +1444,12 @@ def lm_tuned_phase(torch, lm):
     return counts
 
 
-def only(torch, src: Path, phases) -> int:
-    """Build ``src``'s kernels and run ``phases`` only (a phase's extra
-    arguments ride in a tuple beside it)."""
+def only(torch, src: Path, phases, kernels=None) -> int:
+    """Build ``src``'s kernels (``kernels``: those named, else all) and run
+    ``phases`` only (a phase's extra arguments ride in a tuple beside
+    it)."""
     records = []
-    if build_phase() is not None:
+    if build_phase(kernels) is not None:
         gen = torch.Generator().manual_seed(0)
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         for ph, *extra in phases:
@@ -1358,8 +1474,11 @@ def main() -> int:
     ap.add_argument("--ssd-splitk-only", nargs="?", const=str(SRC),
                     metavar="SRC", help="the same for the ssd phase and "
                     "int8_matmul's split-K shapes")
+    ap.add_argument("--quantize-only", nargs="?", const=str(SRC),
+                    metavar="SRC", help="the same for the quantize phase "
+                    "(builds quantize_apply alone)")
     args = ap.parse_args()
-    picked = args.conv_only or args.ssd_splitk_only
+    picked = args.conv_only or args.ssd_splitk_only or args.quantize_only
     src = SRC if picked is None else Path(picked).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke.py: {src}/repro_torch not found",
@@ -1380,6 +1499,8 @@ def main() -> int:
                                  (conv_f32_phase,)])
     if args.ssd_splitk_only is not None:
         return only(torch, src, [(ssd_phase,), (matmul_phase, "splitk")])
+    if args.quantize_only is not None:
+        return only(torch, src, [(quantize_phase,)], ["quantize_apply"])
 
     records = []
     if build_phase() is not None:

@@ -20,6 +20,8 @@ pre-padded input, prepacked matmul weights) are bit-exact to the plain
 versions; the fp32 conv is held to 1e-4, the reference's own tolerance
 for its fp32 conv kernel (tests/test_kernels.py).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ import torch
 from repro_torch.core.engine import Engine
 from repro_torch.core.scheduler import ContinuousBatchingScheduler
 from repro_torch.core.lm import LMEngine
+from repro_torch.kernels import build
 from repro_torch.kernels import conv2d as tconv
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import int8_matmul as tmm
@@ -134,7 +137,15 @@ def test_conv2d_int8_kernel_matches_plain(cuda_device, b, h, w, cin, cout,
     assert torch.equal(got, tconv.conv2d_int8_plain(x, wq, ws, bb, **kw))
 
 
-@pytest.mark.parametrize("m,n", [(18, 48), (32769, 92), (92, 1)])
+# the weights calibration quantizes: CNet's five, the LM's eleven at
+# zamba2-1.2b widths (five distinct shapes); then one row of 4097 columns
+# and N = 3, which take one column a thread
+QUANTIZE_SHAPES = [(18, 48), (32769, 92), (92, 1), (432, 48), (432, 32),
+                   (2048, 2048), (2048, 4096), (2048, 64), (4096, 2048),
+                   (2048, 32000), (1, 4097), (257, 3)]
+
+
+@pytest.mark.parametrize("m,n", QUANTIZE_SHAPES)
 def test_quantize_apply_kernel_matches_plain(cuda_device, m, n):
     g = torch.Generator().manual_seed(m)
     x = torch.randn((m, n), generator=g).to(cuda_device)
@@ -144,6 +155,47 @@ def test_quantize_apply_kernel_matches_plain(cuda_device, m, n):
     torch.cuda.synchronize()
     assert tquant.launches == before + 1
     assert torch.equal(got, tquant.quantize_apply_plain(x, scale))
+    q, s = tquant.quantize(x)
+    assert torch.equal(s, scale) and torch.equal(q, got)
+
+
+@pytest.mark.parametrize("m,n", [(2048, 64), (33, 4096), (5, 4)])
+def test_quantize_apply_kernel_reads_a_misaligned_view(cuda_device, m, n):
+    """A contiguous view that starts 4 bytes into its storage takes one
+    column a thread, and the kernel refuses four there."""
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(m * n + 1, generator=g).to(cuda_device)[1:].view(m, n)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale = x.abs().amax(0) / 127.0 + 1e-12
+    q = torch.empty((m, n), dtype=torch.int8, device=cuda_device)
+    assert tquant.vector_width(x, q) == 1
+    before = tquant.launches
+    got = tquant.quantize_apply(x, scale)
+    torch.cuda.synchronize()
+    assert tquant.launches == before + 1
+    assert torch.equal(got, tquant.quantize_apply_plain(x, scale))
+    lib = build.library("quantize_apply")
+    fn = lib.quantize_apply
+    fn.argtypes, fn.restype = tquant._ARGTYPES, ctypes.c_int
+    rc = fn(x.data_ptr(), scale.data_ptr(), q.data_ptr(), m, n, 1,
+            build.stream(x))
+    assert rc != 0 and "misaligned" in lib.error_string(rc).decode()
+
+
+def test_quantize_apply_indexes_past_2_to_the_31(cuda_device):
+    """M * N just past 2^31 (M = 65,537, N = 32,768; 8.6 GB in): rows at
+    both ends against the plain version on the same rows (rows are
+    independent), so no second fp32 copy is held."""
+    m, n = 65_537, 32_768
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    x = torch.randn((m, n), generator=g, device=cuda_device)
+    scale = x.abs().amax(0) / 127.0 + 1e-12
+    got = tquant.quantize_apply(x, scale)
+    torch.cuda.synchronize()
+    assert m * n > 2 ** 31
+    for rows in (slice(0, 64), slice(m - 64, m)):
+        assert torch.equal(got[rows],
+                           tquant.quantize_apply_plain(x[rows], scale))
 
 
 def test_card_engine_matches_cpu_engine(cuda_device, cpu_engine):

@@ -201,7 +201,11 @@ def test_pad_input_matches_geometry():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("m,n", [(18, 48), (433, 48), (92, 1), (257, 3)])
+@pytest.mark.parametrize("m,n", [
+    (18, 48), (433, 48), (92, 1), (257, 3),
+    # both vector widths: N % 4 == 0 and not, N = 1, M = 1, N = 4097
+    (64, 64), (37, 12), (9, 6), (33, 1), (1, 48), (1, 1), (1, 4097),
+    (3, 4097)])
 def test_quantize_matches_reference(m, n):
     """Codes and scales bit-exact — including where multiplying by the
     reciprocal and dividing disagree by one code."""
@@ -211,6 +215,23 @@ def test_quantize_matches_reference(m, n):
     qt, st = tops.quantize(_t(x))
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+@pytest.mark.parametrize("m,n", [(33, 8), (5, 1), (2, 4097), (40, 3)])
+def test_quantize_zero_and_negative_zero_columns(m, n):
+    """A column of zeros (scale 1e-12), one of -0.0 and a stray -0.0:
+    codes and scales bit-exact to the reference."""
+    rng = np.random.default_rng(m * n)
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    x[:, 0] = 0.0
+    x[:, -1] = -0.0
+    x[0, n // 2] = -0.0
+    qj, sj = jops.quantize(x)
+    qt, st = tops.quantize(_t(x))
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy().view(np.int32),
+                                  np.asarray(sj).view(np.int32))
+    assert st[0] == np.float32(1e-12) and st[-1] == np.float32(1e-12)
 
 
 def test_quantize_apply_uses_the_reciprocal():
