@@ -21,11 +21,21 @@ functions:
   outputs, then a second engine over the saved cache that must search
   nothing;
 * the LM block autotuned at zamba2 widths: one request's prefill and 4
-  decode steps held against the untuned engine's on the card.
+  decode steps held against the untuned engine's on the card;
+* the paper's other five networks at their published widths on
+  ``accel`` (vae_encoder, multi_esperta, logistic_net, reduced_net,
+  baseline_net), each through the scheduler with the launch counts its
+  plan gives (``qplans``), and held against the port's CPU engine: int8
+  chains bit-exact, fp32 conv3d feeding an int8 dense within the
+  reference's accel bound, ESPERTA's prob to 1e-6, the VAE's sample to
+  2e-6; one B=16 dispatch of baseline_net and of vae_encoder profiled.
 
 Besides the kernels those paths run, the fp32 ``conv2d`` (on no served
 path, as in the reference) is held against its plain version and timed
-beside cuDNN's convolution.
+beside cuDNN's convolution. ``sample_normal`` (the VAE's sampler) replaces
+XLA's RNG, not a Pallas kernel: its record names the reference's
+``jax.random.normal`` call, and the check that every ``pallas_call`` has
+a record counts the Pallas records only.
 
 ``int8_matmul`` has two CUDA kernels, chosen by shape
 (``kernels/int8_matmul.py: route``): each shape is timed on the kernel
@@ -99,9 +109,20 @@ LM_KERNELS = ("int8_matmul", "quantize_apply", "flash_attention", "ssd")
 TUNED_CNN_KERNELS = ("int8_matmul", "conv2d_int8", "conv2d_int8_cout_blocks",
                      "quantize_apply")
 TUNED_LM_KERNELS = ("int8_matmul", "flash_attention", "ssd")
+# the paper's other five networks, served on accel at published widths
+SPACE_MODELS = ("vae_encoder", "multi_esperta", "logistic_net",
+                "reduced_net", "baseline_net")
+# card vs CPU engine where fp32 conv3d (cuDNN vs oneDNN) feeds the int8
+# fc1: the reference's own accel bounds (tests/test_conformance.py)
+ACCEL_ATOL = {"reduced_net": 0.02, "baseline_net": 0.05}
+# float32 ops a sampled element takes in csrc/sample_normal.cu: threefry
+# (20 rounds of 5, 5 key injections of 3, 2 + 1), the float and Giles'
+# erfinv (~40 with log1pf), exp and the multiply-add (~13)
+SAMPLE_OPS = 171
 # the weight matrices calibration quantizes ([K, N], one quantize_apply
-# launch each): CNet's five, then the LM block's eleven at zamba2-1.2b
-# widths (models/lm.py: build_graph, ZAMBA2_1_2B)
+# launch each): CNet's five, the LM block's eleven at zamba2-1.2b widths
+# (models/lm.py: build_graph, ZAMBA2_1_2B), then the other five networks'
+# (the VAE's seven; ESPERTA's six [3, 1] alike, one timed; the MMS nets')
 QUANTIZE_WEIGHTS = (
     ("cnet", "conv0", 18, 48), ("cnet", "conv1", 432, 48),
     ("cnet", "conv2", 432, 32), ("cnet", "fc1", 32769, 92),
@@ -111,7 +132,15 @@ QUANTIZE_WEIGHTS = (
     ("lm", "out_proj", 2048, 2048), ("lm", "ssm_in", 2048, 4096),
     ("lm", "b_proj", 2048, 64), ("lm", "c_proj", 2048, 64),
     ("lm", "dt_proj", 2048, 64), ("lm", "down_proj", 4096, 2048),
-    ("lm", "head", 2048, 32000))
+    ("lm", "head", 2048, 32000),
+    ("vae", "conv0", 27, 8), ("vae", "conv1", 72, 32),
+    ("vae", "conv2", 288, 96), ("vae", "conv3", 864, 144),
+    ("vae", "conv4", 1296, 144), ("vae", "mu", 4608, 6),
+    ("vae", "logvar", 4608, 6),
+    ("esperta", "logit0", 3, 1),
+    ("mms", "logistic head", 2048, 4), ("mms", "reduced fc1", 1024, 43),
+    ("mms", "reduced head", 43, 4), ("mms", "baseline fc1", 12288, 73),
+    ("mms", "baseline head", 73, 4))
 # every pallas_call of the reference has a record in the kernels line
 # (int8_matmul one for each of its two CUDA kernels)
 TPU_KERNELS = {
@@ -122,6 +151,10 @@ TPU_KERNELS = {
     "flash_attention": "src/repro/kernels/flash_attention.py:115",
     "ssd": "src/repro/kernels/ssd.py:100",
     "conv2d": "src/repro/kernels/conv2d.py:141",
+}
+# the port's kernels with no pallas_call behind them: what each replaces
+OTHER_KERNELS = {
+    "sample_normal": "src/repro/core/plan.py:140",     # jax.random.normal
 }
 
 FAILURES = []
@@ -283,8 +316,9 @@ def _print_case(c):
 @phase("int8_matmul vs plain, each shape on the kernel its route picks "
        "(CNet fc1 and head at B=16; the LM's prefill projections at B=4 x "
        "2048 positions, decode head and down_proj at 4 lanes; ESPERTA's "
-       "K = 3, N = 1; prepacked: fc1 and head in their tuned layouts, the "
-       "LM head at one prompt)")
+       "six K = 3, N = 1 sigmoid layers (one shape); the MMS nets' and the "
+       "VAE's dense layers at B=16; prepacked: fc1 and head in their tuned "
+       "layouts, the LM head at one prompt)")
 def matmul_phase(torch, gen, flush, only=None):
     """Each shape on the kernel its route picks (``only``: the shapes of
     one route). Split-K shapes also print their device time by the
@@ -310,6 +344,14 @@ def matmul_phase(torch, gen, flush, only=None):
             (LM_SLOTS, 2048, 32000, None, None, None),
             (LM_SLOTS, 4096, 2048, None, None, None),
             (BATCH, 3, 1, "sigmoid", None, None),
+            # logistic_net head; reduced_net fc1 (+relu, requant) and head;
+            # baseline_net fc1 and head; the VAE's mu/logvar (each alike)
+            (BATCH, 2048, 4, None, None, None),
+            (BATCH, 1024, 43, "relu", 0.0173, None),
+            (BATCH, 43, 4, None, None, None),
+            (BATCH, 12288, 73, "relu", 0.0191, None),
+            (BATCH, 73, 4, None, None, None),
+            (BATCH, 4608, 6, None, None, None),
             (BATCH, 32769, 92, "relu", 0.0123456789, (1024, 96)),
             (BATCH, 92, 1, None, None, (96, 8)),
             (2048, 2048, 32000, None, None, (1024, 256))):
@@ -487,13 +529,13 @@ def _fmt(v):
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def _smem(cv, cin, bc, requant):
+def _smem(cv, cin, bc, requant, stride=1):
     """The int8 conv block's shared memory (an older checkout's size
     query takes no output type)."""
     try:
-        return cv.smem_bytes(cin, bc, 3, 3, 1, requant)
+        return cv.smem_bytes(cin, bc, 3, 3, stride, requant)
     except TypeError:
-        return cv.smem_bytes(cin, bc, 3, 3, 1)
+        return cv.smem_bytes(cin, bc, 3, 3, stride)
 
 
 @phase("int8_matmul route rule: device time of both kernels at small M "
@@ -541,25 +583,35 @@ def route_phase(torch, gen, flush):
           f"shapes measured ({len(shapes)} tried)")
 
 
-@phase("conv2d_int8 vs plain (conv0/1/2 at B=16)")
+@phase("conv2d_int8 vs plain (CNet's conv0/1/2 and the VAE's five "
+       "stride-2 convs, at B=16)")
 def conv_phase(torch, gen, flush):
     from repro_torch.kernels import conv2d as cv
     dev = "cuda"
     cases = []
-    # (H, W, Cin, Cout, requant, int8 input from a requantizing producer)
-    for h, w_, cin, cout, rq in ((256, 256, 2, 48, 0.02),
-                                 (128, 128, 48, 48, 0.0163),
-                                 (64, 64, 48, 32, None)):
+    # (H, W, Cin, Cout, stride, requant): CNet's three, then the VAE's
+    # five (int8 in, relu, requantized for the next; the last feeds mu and
+    # logvar through flatten)
+    for h, w_, cin, cout, stride, rq in (
+            (256, 256, 2, 48, 1, 0.02), (128, 128, 48, 48, 1, 0.0163),
+            (64, 64, 48, 32, 1, None),
+            (128, 256, 3, 8, 2, 0.0241), (64, 128, 8, 32, 2, 0.0286),
+            (32, 64, 32, 96, 2, 0.0228), (16, 32, 96, 144, 2, 0.0172),
+            (8, 16, 144, 144, 2, 0.011)):
         x = torch.randint(-127, 128, (BATCH, h, w_, cin), generator=gen,
                           dtype=torch.int8).to(dev)
         w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
                           dtype=torch.int8).to(dev)
         ws = (torch.rand(cout, generator=gen) * 0.01).to(dev)
         b = torch.randn(cout, generator=gen).to(dev)
-        kw = dict(x_scale=0.00876, stride=1, padding="SAME", act="relu",
-                  requant_scale=rq)
+        kw = dict(x_scale=0.00876, stride=stride, padding="SAME",
+                  act="relu", requant_scale=rq)
+        before = (cv.launches, cv.launches_cout_blocks)
         out = cv.conv2d_int8(x, w, ws, b, **kw)
         torch.cuda.synchronize()
+        # a whole-Cout call counts as such, whichever grid it took
+        assert (cv.launches, cv.launches_cout_blocks) == (
+            before[0] + 1, before[1])
         ref = cv.conv2d_int8_plain(x, w, ws, b, **kw)
         err = exact(torch, out, ref)
         t = device_ms(torch, lambda: cv.conv2d_int8(x, w, ws, b, **kw), 30,
@@ -567,16 +619,25 @@ def conv_phase(torch, gen, flush):
         td = conv_device_ms(torch, lambda: cv.conv2d_int8(x, w, ws, b, **kw))
         tp = device_ms(torch, lambda: cv.conv2d_int8_plain(x, w, ws, b, **kw),
                        5, flush)
-        out_bytes = BATCH * h * w_ * cout * (1 if rq is not None else 4)
+        n_out = out.numel()
+        out_bytes = n_out * (1 if rq is not None else 4)
         nbytes = x.numel() + w.numel() + 8 * cout + out_bytes
-        ops = 2.0 * BATCH * h * w_ * cout * 9 * cin
+        ops = 2.0 * n_out * 9 * cin
         bms, by = bound_ms(nbytes, ops, PEAK_INT8_OPS_S)
-        cases.append(dict(shape=f"[{BATCH},{h},{w_},{cin}]->{cout} requant="
-                          f"{rq is not None}", err=err, ms=t, plain_ms=tp,
-                          library_ms=None, bound_ms=bms, bound_by=by))
+        cases.append(dict(shape=f"[{BATCH},{h},{w_},{cin}]->{cout} stride "
+                          f"{stride} requant={rq is not None}", err=err,
+                          ms=t, plain_ms=tp, library_ms=None, bound_ms=bms,
+                          bound_by=by, device_ms=td))
         _print_case(cases[-1])
-        print(f"     device_ms={_fmt(td)} (profiler); dynamic shared memory "
-              f"per block: {_smem(cv, cin, cout, rq is not None)} B")
+        def smem(c):
+            return _smem(cv, cin, c, rq is not None, stride)
+        whole, grid = smem(cout), "whole Cout"
+        if whole > 232448:
+            bc = cv.fit_channel_block(cout, smem)
+            grid = (f"channel blocks of {bc} ({smem(bc)} B each; whole Cout "
+                    f"would need {whole} B)")
+        print(f"     device_ms={_fmt(td)} (profiler); grid: {grid}; dynamic "
+              f"shared memory per whole-Cout block: {whole} B")
     print("   library_ms: none (PyTorch has no int8 convolution on CUDA)")
     return _kernel_record("conv2d_int8", "src/repro_torch/csrc/conv2d_int8.cu",
                           TPU_KERNELS["conv2d_int8"], cases)
@@ -603,13 +664,18 @@ def conv_blocks_phase(torch, gen, flush):
                   requant_scale=rq, rows_per_block=rows)
         whole = _smem(cv, cin, cout, rq is not None)
         if whole > 232448:
-            try:
-                cv.conv2d_int8(x, w, ws, bias, **kw)
-            except ValueError as e:
-                print(f"   whole-Cout refused as it must: {e}")
-            else:
-                raise AssertionError("a filter over the shared-memory "
-                                     "limit was not refused")
+            # a whole-Cout call the block cannot hold takes the channel-
+            # blocked grid with the largest block that fits, counted whole
+            before = (cv.launches, cv.launches_cout_blocks)
+            fitted = cv.conv2d_int8(x, w, ws, bias, **kw)
+            torch.cuda.synchronize()
+            assert (cv.launches, cv.launches_cout_blocks) == (
+                before[0] + 1, before[1])
+            exact(torch, fitted, cv.conv2d_int8_plain(x, w, ws, bias, **kw))
+            bc_fit = cv.fit_channel_block(
+                cout, lambda c: _smem(cv, cin, c, rq is not None))
+            print(f"   whole-Cout ({whole} B) ran the channel-blocked grid "
+                  f"with blocks of {bc_fit}: bit-exact")
         if pre:
             g = cv.conv_geometry(h, w_, 3, 3, 1, "SAME", rows)
             xk = cv.pad_input(x, g)
@@ -703,6 +769,63 @@ def conv_f32_phase(torch, gen, flush):
                           TPU_KERNELS["conv2d"], cases)
 
 
+@phase("sample_normal vs plain (the VAE's sampling tail: B=16 samples of "
+       "6, the record's shape; and 16 of 100,000)")
+def sample_phase(torch, gen, flush):
+    """The kernel's threefry bits equal the plain version's exactly; eps
+    and the sample hold to the plain version (on the card) within 2e-6
+    relative, atol 1e-6 (the card's log1pf and expf against PyTorch's)."""
+    from repro_torch.kernels import sample as smp
+    dev = "cuda"
+    cases = []
+    # the served shape makes the record; the long one is printed only
+    for b, n, served in ((BATCH, 6, True), (BATCH, 100_000, False)):
+        keys = torch.randint(0, 2 ** 32, (b, 2), generator=gen,
+                             dtype=torch.int64)
+        mu = torch.randn((b, n), generator=gen).to(dev)
+        lv = torch.randn((b, n), generator=gen).to(dev)
+        before = smp.launches
+        bits = smp.random_bits_kernel(keys, n, mu.device)
+        out = smp.sample_normal(mu, lv, keys)
+        torch.cuda.synchronize()
+        assert smp.launches == before + 2
+        exact(torch, bits, smp.random_bits(keys.to(dev), n))
+        zeros = torch.zeros_like(mu)
+        close(torch, smp.sample_normal(zeros, zeros, keys),
+              smp.normal_plain(keys.to(dev), n), 2e-6)
+        ref = smp.sample_normal_plain(mu, lv, keys)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("non-finite samples")
+        torch.testing.assert_close(out, ref, rtol=2e-6, atol=1e-6)
+        err = float((out.double() - ref.double()).abs().max())
+        # timed as served: the keys on the host, copied in by the wrapper
+        t = device_ms(torch, lambda: smp.sample_normal(mu, lv, keys), 50,
+                      flush)
+        print(f"   [{b},{n}] device events per call (keys from the host):")
+        td = per_call_device_us(
+            torch, [lambda: smp.sample_normal(mu, lv, keys)] * 20, show=True)
+        td = None if td is None else td / 1e3
+        keys_dev = keys.to(dev)
+        tp = device_ms(torch, lambda: smp.sample_normal_plain(mu, lv,
+                                                              keys_dev),
+                       10, flush)
+        # mu, logvar and the keys read once, the sample written once
+        nbytes = 4 * (3 * b * n) + 8 * b
+        bms, by = bound_ms(nbytes, SAMPLE_OPS * b * n, PEAK_FP32_OPS_S)
+        case = dict(shape=f"[{b},{n}]", err=err, ms=t, plain_ms=tp,
+                    library_ms=None, bound_ms=bms, bound_by=by)
+        if served:
+            cases.append(case)
+        _print_case(case)
+        print(f"     device_ms={_fmt(td)} (profiler); bits exact")
+    print("   tolerance 2e-6 relative (atol 1e-6) against the plain version; "
+          "library_ms: none (PyTorch has no threefry; torch.randn draws "
+          "other numbers)")
+    return _kernel_record("sample_normal",
+                          "src/repro_torch/csrc/sample_normal.cu",
+                          OTHER_KERNELS["sample_normal"], cases)
+
+
 def _cold_inputs(x, n: int = 8):
     """``n`` or more inputs for back-to-back calls, cycling over copies of
     ``x`` that fill 128 MB (at most 256), so that at the LM's shapes each
@@ -723,7 +846,8 @@ def _us_sum(cases, key):
 
 
 @phase("quantize_apply vs plain (the weights calibration quantizes: CNet's "
-       "five, the LM's eleven at zamba2-1.2b widths)")
+       "five, the LM's eleven at zamba2-1.2b widths, the VAE's seven, "
+       "ESPERTA's [3, 1], the MMS nets' five)")
 def quantize_phase(torch, gen, flush):
     """Each weight shape: bit-exact to the plain version, the kernel's
     device time by the profiler (HBM-cold matrices) beside its event time,
@@ -801,7 +925,7 @@ def quantize_phase(torch, gen, flush):
         if lib_note:
             print(f"     quantize_per_channel: {lib_note}")
         del x, xs, out, scale
-    for model in ("lm", "cnet"):
+    for model in dict.fromkeys(c["model"] for c in cases):
         sub = [c for c in cases if c["model"] == model]
         print(f"   sum over {model}'s {len(sub)} weights: "
               f"device_us={_fmt(_us_sum(sub, 'kern_us'))} "
@@ -1050,6 +1174,150 @@ def reference_phase(torch, sched, card_engine, inputs):
         assert np.isfinite(got.numpy()).all()
     print(f"   {len(comps)} outputs bit-exact (max |diff| {worst}); CPU "
           f"reference took {time.perf_counter() - t0:.1f} s")
+
+
+def _plan_kernels(engine):
+    """What one program run of the engine's accel plan launches, from the
+    plan itself: its quantized dense and conv nodes and its random nodes;
+    and the weights calibration quantizes (every conv2d/dense node)."""
+    plan = engine.planned("accel")
+    ops = [qp.op for qp in plan.qplans.values()]
+    return dict(
+        dense=ops.count("dense"), conv=ops.count("conv2d"),
+        sample=sum(n.op == "sample_normal"
+                   for n in plan.graph.nodes.values()),
+        quantized=sum(n.op in ("conv2d", "dense")
+                      for n in engine.graph.nodes.values()),
+        demoted=list(plan.demoted))
+
+
+@phase("main path: serve the paper's other five networks (published "
+       "widths) on accel through the scheduler")
+def space_serve_phase(torch, name):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    args = serve.parser().parse_args([
+        "--mode", "space", "--model", name, "--backend", "accel",
+        "--requests", str(N_REQUESTS), "--batch", str(LADDER_TOP)])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched, trace, engines = serve.build_scheduler(args)
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sched.serve_trace(trace)
+    counts = counts_with_routes(ops)
+    wall = time.perf_counter() - t0
+    tel = sched.telemetry()[name]
+    engine = engines[name]
+    print(sched.summary())
+    runs = len(sched.dispatches) + 2 * len(serve.capped_ladder(LADDER_TOP))
+    k = _plan_kernels(engine)
+    # calibration's fp32 trace runs every node once a calibration request
+    # on the card, the sampler among them (the launcher calibrates on 4)
+    traced = 4
+    print(f"   [{name}] setup (calibrate + warm-up) {setup:.2f} s; served "
+          f"{tel.n_completed}/{N_REQUESTS} in {len(sched.dispatches)} "
+          f"dispatches, wall {wall:.3f} s, p50 {tel.p50_latency_ms:.2f} ms, "
+          f"p99 {tel.p99_latency_ms:.2f} ms")
+    print(f"   plan: {k['dense']} int8 dense, {k['conv']} int8 conv, "
+          f"{k['sample']} sampler node(s) a run, {runs} runs; PTQ-demoted "
+          f"{k['demoted']}")
+    print(f"   launch counts: {counts}")
+    assert tel.n_completed == N_REQUESTS, tel.n_completed
+    want = {"quantize_apply": k["quantized"],
+            "int8_matmul": k["dense"] * runs,
+            "int8_matmul:splitk": k["dense"] * runs,
+            "conv2d_int8": k["conv"] * runs,
+            "conv2d_int8_cout_blocks": 0,
+            "sample_normal": k["sample"] * (runs + traced)}
+    got = {n: counts[n] for n in want}
+    assert got == want, (got, want)
+    expected = tuple(n for n in ("int8_matmul", "conv2d_int8",
+                                 "quantize_apply", "sample_normal")
+                     if want[n])
+    inputs = [r for _, _, r in sorted(trace, key=lambda e: e[0])]
+    return sched, engine, counts, inputs, expected
+
+
+@phase("served outputs of the five networks vs the port's CPU engine "
+       "(plain versions, sharing weights and calibration)")
+def space_reference_phase(torch, name, sched, card_engine, inputs):
+    """int8 chains bit-exact (the VAE's mu and logvar; logistic_net's
+    head when quantized); fp32 conv3d (cuDNN here, oneDNN there) feeding
+    the int8 fc1 within the reference's accel bound, an argmax flip only
+    on a fp32 top-2 margin within twice it; ESPERTA's prob to 1e-6
+    relative, warn equal off the threshold; fp32 dense (a demoted layer)
+    to 1e-5. The VAE's sample: one B=16 batch on both engines with the
+    same keys, within 2e-6 (the served keys come from the pipeline's seed
+    chain)."""
+    import numpy as np
+    from repro_torch.core.engine import Engine
+    from repro_torch.models import esperta
+    cpu = Engine(card_engine.graph,
+                 {n: {k: v.cpu() for k, v in p.items()}
+                  for n, p in card_engine.params.items()}, device="cpu")
+    cpu.share_calibration(card_engine)
+    qplans = card_engine.planned("accel").qplans
+    comps = sorted(sched.completions, key=lambda c: c.rid)
+    t0 = time.perf_counter()
+    worst = 0.0
+    for i in range(0, len(comps), BATCH):
+        chunk = comps[i:i + BATCH]
+        reqs = [inputs[c.rid] for c in chunk]
+        batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+        want = {k: v.numpy() for k, v in cpu.run_batch(batch,
+                                                       "accel").items()}
+        got = {k: np.stack([c.outputs[k] for c in chunk]) for k in want}
+        for k, g in got.items():
+            if not np.isfinite(g.astype(np.float64)).all():
+                raise AssertionError(f"{k}: non-finite outputs")
+        t = {k: torch.from_numpy(v) for k, v in got.items()}
+        w = {k: torch.from_numpy(v) for k, v in want.items()}
+        if name == "vae_encoder":
+            for k in ("mu", "logvar"):
+                worst = max(worst, exact(torch, t[k], w[k]))
+        elif name == "multi_esperta":
+            for m in range(6):
+                worst = max(worst, float(np.abs(got[f"prob{m}"]
+                                                - want[f"prob{m}"]).max()))
+                torch.testing.assert_close(t[f"prob{m}"], w[f"prob{m}"],
+                                           rtol=1e-6, atol=0)
+                off = (np.abs(want[f"prob{m}"] - esperta.THRESHOLDS[m])
+                       > 1e-6)
+                assert (got[f"warn{m}"][off] == want[f"warn{m}"][off]).all()
+        elif name == "logistic_net" and "head" in qplans:
+            worst = max(worst, exact(torch, t["head"], w["head"]))
+            exact(torch, t["region"], w["region"])
+        elif name == "logistic_net":
+            worst = max(worst, close(torch, t["head"], w["head"], 1e-5))
+            exact(torch, t["region"], w["region"])
+        else:
+            atol = ACCEL_ATOL[name]
+            err = float(np.abs(got["head"] - want["head"]).max())
+            assert err <= atol, (err, atol)
+            worst = max(worst, err)
+            logits = cpu.run_batch(batch, "cpu")["head"].numpy()
+            for r in np.nonzero(got["region"] != want["region"])[0]:
+                top = np.sort(logits[r].ravel())
+                assert top[-1] - top[-2] <= 2 * atol, (r, top[-2:])
+    print(f"   {len(comps)} outputs held (max |diff| {worst}); CPU "
+          f"reference took {time.perf_counter() - t0:.1f} s")
+    if name == "vae_encoder":
+        reqs = inputs[:BATCH]
+        batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+        keys = np.random.default_rng(17).integers(
+            0, 2 ** 32, size=(len(reqs), 2), dtype=np.uint32)
+        g = card_engine.run_batch(batch, "accel", rngs=keys)
+        c = cpu.run_batch(batch, "accel", rngs=keys)
+        exact(torch, g["mu"].cpu(), c["mu"])
+        torch.testing.assert_close(g["sample"].cpu(), c["sample"],
+                                   rtol=2e-6, atol=1e-6)
+        err = float((g["sample"].cpu() - c["sample"]).abs().max())
+        samples = np.stack([x.outputs["sample"] for x in comps])
+        assert len(np.unique(samples, axis=0)) == len(comps), \
+            "served samples repeat"
+        print(f"   sample, same keys, card vs CPU: max |diff| {err}; "
+              f"{len(comps)} served samples all distinct")
 
 
 @phase("main path: serve the LM block at zamba2-1.2b widths on accel "
@@ -1507,7 +1775,8 @@ def main() -> int:
         gen = torch.Generator().manual_seed(0)
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         for ph in (matmul_phase, conv_phase, conv_blocks_phase,
-                   quantize_phase, flash_phase, ssd_phase, conv_f32_phase):
+                   quantize_phase, flash_phase, ssd_phase, conv_f32_phase,
+                   sample_phase):
             rec = ph(torch, gen, flush)
             if isinstance(rec, list):
                 records.extend(rec)
@@ -1537,6 +1806,17 @@ def main() -> int:
                 torch.cuda.empty_cache()
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        for name in SPACE_MODELS:
+            served = space_serve_phase(torch, name)
+            if served is None:
+                continue
+            sched, engine, counts, inputs, expected = served
+            paths[name] = (expected, counts)
+            space_reference_phase(torch, name, sched, engine, inputs)
+            if name in ("baseline_net", "vae_encoder"):
+                profile_phase(torch, engine, inputs, name)
+            del sched, engine, inputs
+            torch.cuda.empty_cache()
         served = lm_serve_phase(torch)
         if served is not None:
             sched, lm, counts = served
@@ -1546,7 +1826,7 @@ def main() -> int:
             counts = lm_tuned_phase(torch, lm)
             if counts is not None:
                 paths["lm --autotune"] = (TUNED_LM_KERNELS, counts)
-        if len(paths) != 4:
+        if len(paths) != 4 + len(SPACE_MODELS):
             FAILURES.append("a served path failed")
         for path, (names, counts) in paths.items():
             print(f"launches on the {path} path: {counts}")
@@ -1554,10 +1834,15 @@ def main() -> int:
                             for n in names if counts[n] == 0)
         for rec in records:
             rec["launches"] = sum(c[rec["name"]] for _, c in paths.values())
-    covered = {r["replaces"] for r in records}
+    # every pallas_call has a record, and every kernel with none behind it
+    covered = {r["replaces"] for r in records
+               if r["name"] not in OTHER_KERNELS}
     if covered != set(TPU_KERNELS.values()):
         FAILURES.append(f"kernel records cover {len(covered)} of the "
                         f"{len(TPU_KERNELS)} TPU kernels")
+    missing = set(OTHER_KERNELS) - {r["name"] for r in records}
+    if missing:
+        FAILURES.append(f"no kernel record for {sorted(missing)}")
     print(json.dumps({"kernels": records}), flush=True)
     print(gpu_line(), flush=True)
     if FAILURES:

@@ -33,6 +33,7 @@ from repro_torch.core.opgraph import Graph
 from repro_torch.core.plan import BATCHED_OP_IMPLS, EagerPlan, ExecutionPlan
 from repro_torch.core.quantize import QuantizedLayer
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.sample import split
 
 # ---------------------------------------------------------------------------
 # Single-sample fp32 op implementations (calibration tracing, constant
@@ -48,7 +49,8 @@ def _single_sample(op_impl: Callable) -> Callable:
             # CPU so the caller can read the result back with np.asarray
             xs = [torch.as_tensor(np.asarray(x)) for x in xs]
             p = {k: v.cpu() for k, v in p.items()}
-        return op_impl([x[None] for x in xs], p, a, None)[0]
+        sub = None if rng is None else torch.as_tensor(rng).reshape(1, 2)
+        return op_impl([x[None] for x in xs], p, a, sub)[0]
     return f
 
 
@@ -209,7 +211,8 @@ class Engine:
                   rngs: Optional[np.ndarray] = None
                   ) -> Dict[str, torch.Tensor]:
         """Batched execution: every input carries a leading batch dim;
-        ``rngs`` is one seed pair per sample ([B, 2])."""
+        ``rngs`` is one raw key pair per sample ([B, 2] uint32 values; by
+        default the reference's, the split of key (0, 0) into B keys)."""
         staged = {}
         batch = None
         for name, shape in self.graph.graph_inputs.items():
@@ -224,8 +227,7 @@ class Engine:
                                  f"want ({batch}, *{shape})")
             staged[name] = x
         if rngs is None:
-            rngs = np.random.default_rng(0).integers(
-                0, 2 ** 32, size=(batch, 2), dtype=np.uint32)
+            rngs = split(np.zeros(2, np.uint32), batch)
         rngs = torch.as_tensor(np.asarray(rngs, np.int64))
         if tuple(rngs.shape) != (batch, 2):
             raise ValueError(f"rngs: shape {tuple(rngs.shape)}, want "

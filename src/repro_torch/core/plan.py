@@ -20,8 +20,12 @@ Layout is NHWC at every graph value, as in the reference: library ops
 that want channels first (convolution, pooling) permute inside. Every
 int8 conv2d/dense runs the hand-written kernels through
 :func:`_run_quantized`; the LM block's ``attention`` and ``ssd`` nodes run
-the flash-attention and SSD kernels. Random ops (VAE sampling) are not
-ported yet; a graph that needs them is refused at plan time.
+the flash-attention and SSD kernels; the VAE's ``sample_normal`` the
+sampler kernel. Random ops thread a per-sample key array ``rngs [B, 2]``
+(raw uint32 key pairs) through the program as the reference does: each
+random node splits every row's key, carries the first half on and hands
+the second to the op, so row *i* of a batched run equals a single-sample
+run with key ``rngs[i]``.
 """
 from __future__ import annotations
 
@@ -35,11 +39,13 @@ import torch.nn.functional as F
 from repro_torch.core import autotune as autotune_mod
 from repro_torch.core import energy as energy_mod
 from repro_torch.core import memory as memory_mod
-from repro_torch.core.opgraph import Graph, Node, base_op, consumers, param_node
+from repro_torch.core.opgraph import (RANDOM_OPS, Graph, Node, base_op,
+                                     consumers, param_node)
 from repro_torch.core.passes import PassContext, PassManager, PassReport
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.conv2d import conv_geometry, pad_input
 from repro_torch.kernels.epilogue import f32, quantize_act
+from repro_torch.kernels.sample import split_keys
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +180,7 @@ BATCHED_OP_IMPLS: Dict[str, Callable] = {
     "sub": lambda x, p, a, rng: x[0] - x[1],
     "mul": lambda x, p, a, rng: x[0] * x[1],
     "greater": lambda x, p, a, rng: (x[0] > a["threshold"]).float(),
+    "sample_normal": lambda x, p, a, rng: kops.sample_normal(x[0], x[1], rng),
     "argmax": lambda x, p, a, rng: torch.argmax(
         x[0].reshape(x[0].shape[0], -1), dim=1).to(torch.int32),
 }
@@ -503,8 +510,8 @@ class ExecutionPlan:
                    ) -> Callable:
         """The plan as a callable ``f(inputs[B,...], rngs[B,2], weights)``:
         ``weights`` is the live :attr:`weight_arena` dict (prepacked
-        entries arrive tile-aligned); ``rngs`` carries one seed pair per
-        sample for random ops (none is ported yet). ``tuning`` (node ->
+        entries arrive tile-aligned); ``rngs`` carries one raw key pair per
+        sample for random ops (split per random node). ``tuning`` (node ->
         TuningDecision, one batch rung) binds the autotuned configs. The
         result holds the graph outputs and, under :func:`ssd_state_key`,
         each ``ssd`` node's final state."""
@@ -550,8 +557,11 @@ class ExecutionPlan:
                         vals[name], states[ssd_state_key(name)] = _ssd_b(
                             xs, params.get(name, {}), node.attrs, cfg)
                         continue
+                    sub = None
+                    if node.op in RANDOM_OPS:
+                        rngs, sub = split_keys(rngs)
                     vals[name] = BATCHED_OP_IMPLS[node.op](
-                        xs, params.get(name, {}), node.attrs, None)
+                        xs, params.get(name, {}), node.attrs, sub)
             return {**{o: vals[o] for o in graph.outputs}, **states}
 
         return f

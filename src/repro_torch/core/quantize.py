@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.opgraph import Graph
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.sample import split
 
 
 @dataclasses.dataclass
@@ -102,10 +103,13 @@ def ptq_error_ratios(engine, sample_inputs: List[Dict[str, np.ndarray]],
 
 
 def _trace(engine, inputs) -> Dict[str, torch.Tensor]:
-    """One fp32 single-sample pass recording every node's value."""
+    """One fp32 single-sample pass recording every node's value. Each
+    non-constant node takes the next key of a split chain from key (0, 0),
+    as the reference's trace does (only random ops read it)."""
     from repro_torch.core.engine import OP_IMPLS
     g = engine.graph
     vals: Dict[str, torch.Tensor] = {}
+    rng = np.zeros((1, 2), np.uint64)
     for name in g.graph_inputs:
         vals[name] = torch.as_tensor(np.asarray(inputs[name], np.float32),
                                      device=engine.device)
@@ -117,7 +121,10 @@ def _trace(engine, inputs) -> Dict[str, torch.Tensor]:
             vals[name] = torch.as_tensor(np.asarray(node.attrs["value"]),
                                          device=engine.device)
             continue
+        both = split(rng)
+        rng, sub = both[:, 0], both[:, 1]
         vals[name] = OP_IMPLS[node.op]([vals[i] for i in node.inputs],
                                        engine.params.get(name, {}),
-                                       node.attrs, None)
+                                       node.attrs,
+                                       torch.from_numpy(sub.astype(np.int64)))
     return vals

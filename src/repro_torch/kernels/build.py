@@ -39,6 +39,7 @@ SOURCES = {
     "conv2d_f32": "conv2d_f32.cu",
     "flash_attention": "flash_attention.cu",
     "ssd": "ssd.cu",
+    "sample_normal": "sample_normal.cu",
 }
 HEADERS = ("common.cuh", "igemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -35,7 +35,12 @@ reference's meaning (an input already staged by :func:`conv_geometry` at
 ``rows_per_block``, weights padded to whole channel blocks with the
 logical ``cout`` passed apart); ``rows_per_block`` fixes only that staging
 geometry, the CUDA sub-tile stays 4 x 32 pixels. Launches of the two grids are
-counted apart (``launches``, ``launches_cout_blocks``).
+counted apart (``launches``, ``launches_cout_blocks``). A whole-Cout call
+whose filter slice does not fit one block (the VAE's 96 -> 144 and
+144 -> 144 convs) runs the channel-blocked grid with the largest block of
+8k channels that fits (:func:`fit_channel_block`): which channels a block
+computes changes no output, and the launch counts under ``launches``, as
+the whole-Cout call it serves.
 
 ``conv2d`` replaces the reference's fp32 Pallas kernel (``conv2d.py``,
 ``_kernel``) with ``csrc/conv2d_f32.cu``: NHWC SAME/VALID, stride s, bias
@@ -206,6 +211,16 @@ def smem_bytes(cin: int, bc: int, kh: int, kw: int, stride: int,
     return fn(cin, bc, kh, kw, stride, int(requant), msub)
 
 
+def fit_channel_block(cout: int, smem_of) -> int:
+    """The largest channel block, a multiple of 8 below ``cout``, whose
+    block (``smem_of(bc)`` bytes of shared memory) fits a Hopper block; 0
+    when not even 8 channels fit."""
+    for bc in range((cout - 1) // 8 * 8, 0, -8):
+        if smem_of(bc) <= _SMEM_LIMIT:
+            return bc
+    return 0
+
+
 def sub_tiles(b: int, h_out: int, w_out: int, sms: int, smem_of) -> int:
     """4-row sub-tiles per tile of the conv kernels (4, 2 or 1): the most
     whose block (``smem_of(msub)`` bytes) still fits three to an SM while
@@ -243,7 +258,10 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     leaves more than one block (as the reference picks its grid);
     ``cout`` is the logical channel count of padded weights;
     ``pre_padded`` says ``x_q`` was staged by :func:`pad_input` at
-    ``rows_per_block`` from the logical ``in_hw``."""
+    ``rows_per_block`` from the logical ``in_hw``. Without
+    ``cout_per_block``, a filter slice too large for one block takes the
+    channel-blocked grid with the largest block that fits, counted as
+    ``launches`` (a whole-Cout call)."""
     act = normalize_act(relu, act)
     cw = w_q.shape[3] if w_q.ndim == 4 else 0
     if (x_q.ndim != 4 or w_q.ndim != 4 or x_q.shape[3] != w_q.shape[2]
@@ -277,6 +295,15 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     requant = requant_scale is not None
     bcw = bc if blocks else cout
     smem = smem_bytes(cin, bcw, kh, kw, stride, requant)
+    fitted = smem > _SMEM_LIMIT and not blocks
+    if fitted:
+        # the whole-Cout slice does not fit: the same kernel's
+        # channel-blocked grid, with the largest block that does
+        bc = fit_channel_block(cout, lambda c: smem_bytes(
+            cin, c, kh, kw, stride, requant))
+        if bc:
+            blocks, bcw = True, bc
+            smem = smem_bytes(cin, bc, kh, kw, stride, requant)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"conv2d_int8: a {kh}x{kw}x{cin}x{bc if blocks else cout} "
@@ -307,7 +334,7 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
             reciprocal_f32(requant_scale) if requant else 0.0,
             build.stream(x_q))
     build.check(lib, rc, "conv2d_int8")
-    if blocks:
+    if blocks and not fitted:
         launches_cout_blocks += 1
     else:
         launches += 1

@@ -6,7 +6,10 @@ cannot). The counters count CUDA launches only: a run reads them to show
 that its path went through the kernels. ``conv2d_int8`` and
 ``conv2d_int8_cout_blocks`` count the int8 conv's two grids apart (the
 whole-Cout grid and the autotuner's channel-blocked one); ``conv2d`` is
-the fp32 conv. ``int8_matmul`` counts both of its kernels;
+the fp32 conv; a whole-Cout call whose filter does not fit one block runs
+the channel-blocked grid and still counts as ``conv2d_int8``.
+``sample_normal`` is the VAE's sampler, which replaces XLA's RNG rather
+than a Pallas kernel. ``int8_matmul`` counts both of its kernels;
 :func:`route_counts` says which of them served (``kernels/int8_matmul.py``).
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ from repro_torch.kernels import conv2d as _conv2d
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import int8_matmul as _int8mm
 from repro_torch.kernels import quantize as _quant
+from repro_torch.kernels import sample as _sample
 from repro_torch.kernels import ssd as _ssd
 
 # counter name -> (module, attribute holding its count)
@@ -28,6 +32,7 @@ COUNTERS = {
     "quantize_apply": (_quant, "launches"),
     "flash_attention": (_flash, "launches"),
     "ssd": (_ssd, "launches"),
+    "sample_normal": (_sample, "launches"),
 }
 
 int8_matmul = _int8mm.int8_matmul
@@ -36,6 +41,7 @@ conv2d = _conv2d.conv2d
 conv2d_plain = _conv2d.conv2d_plain
 quantize_apply = _quant.quantize_apply
 quantize = _quant.quantize
+sample_normal = _sample.sample_normal
 
 
 def flash_attention(q, k, v, *, causal=True, bq=256, bk=256):

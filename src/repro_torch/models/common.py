@@ -30,10 +30,10 @@ def _normal(rng: np.random.Generator, shape, std: float) -> torch.Tensor:
 
 def init_graph_params(g: Graph, seed: int
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """He-normal conv weights (HWIO), LeCun-normal dense weights ([K, N]),
-    zero biases and SSD decay rates ``A = -uniform(0.5, 1.5)`` per head,
-    drawn in graph order from ``seed``. CPU tensors: the engine moves
-    them to its device."""
+    """He-normal conv weights (HWIO; DHWIO for conv3d), LeCun-normal dense
+    weights ([K, N]), zero biases and SSD decay rates ``A = -uniform(0.5,
+    1.5)`` per head, drawn in graph order from ``seed``. CPU tensors: the
+    engine moves them to its device."""
     rng = np.random.default_rng(seed)
     params: Dict[str, Dict[str, torch.Tensor]] = {}
     for name in g.order:
@@ -63,5 +63,11 @@ def init_graph_params(g: Graph, seed: int
             params[name] = {"A": torch.from_numpy(
                 -rng.uniform(0.5, 1.5, size=(h,)).astype(np.float32))}
         elif node.op == "conv3d":
-            raise NotImplementedError(f"no init for {node.op} in the port yet")
+            kd, kh, kw = node.attrs["kernel"]
+            cin = g.nodes[node.inputs[0]].out_shape[-1]
+            cout = node.attrs["features"]
+            params[name] = {
+                "w": _normal(rng, (kd, kh, kw, cin, cout),
+                             (2.0 / (kd * kh * kw * cin)) ** 0.5),
+                "b": torch.zeros(cout)}
     return params

@@ -611,6 +611,86 @@ def test_fastdiv_matches_integer_division(d):
             assert _fastdiv(n, d) == n // d, (n, d)
 
 
+# the VAE's five stride-2 3x3 int8 convs (Cin, Cout); they run at B=16 on
+# maps of 128x256, 64x128, 32x64, 16x32 and 8x16
+VAE_CONVS = ((3, 8), (8, 32), (32, 96), (96, 144), (144, 144))
+
+
+def _vae_smem(cin):
+    return lambda bc: int8_layout(cin, bc, 3, 3, 2).total
+
+
+@pytest.mark.parametrize("cin,cout", VAE_CONVS)
+def test_whole_cout_fit_picks_the_largest_block_that_fits(cin, cout):
+    """The wrapper's repair for a whole-Cout filter slice that does not
+    fit one block: the largest channel block of 8k that does. The VAE's
+    96 -> 144 and 144 -> 144 slices do not fit whole (their filter rows
+    alone are 126,720 and 191,232 B); their blocks are 96 and 32."""
+    smem_of = _vae_smem(cin)
+    fits_whole = smem_of(cout) <= SMEM_LIMIT
+    assert fits_whole == (cout < 144)
+    if fits_whole:
+        return
+    bc = tconv.fit_channel_block(cout, smem_of)
+    assert bc == {96: 96, 144: 32}[cin]
+    assert bc % 8 == 0 and 0 < bc < cout and smem_of(bc) <= SMEM_LIMIT
+    assert all(smem_of(c) > SMEM_LIMIT for c in range(bc + 8, cout, 8))
+
+
+def test_fit_gives_up_when_no_block_fits():
+    assert tconv.fit_channel_block(8, _vae_smem(144)) == 0
+    assert tconv.fit_channel_block(64, lambda bc: SMEM_LIMIT + 1) == 0
+    assert tconv.fit_channel_block(64, lambda bc: SMEM_LIMIT) == 56
+
+
+def test_wrapper_runs_the_fitted_grid_and_counts_it_whole_cout(monkeypatch):
+    """For 144 -> 144, stride 2, the wrapper launches the channel-blocked
+    grid with the fitted block (32) and counts the launch as
+    ``conv2d_int8``, as the whole-Cout call it serves; a filter slice that
+    fits is launched whole. The launch is stubbed: the library is not
+    built here, and the smem query is the mirror."""
+    from repro_torch.kernels import build
+    seen = []
+
+    def launch(*args):
+        seen.append(args[18])               # bc: 0 runs the whole grid
+        return 0
+
+    lib = SimpleNamespace(conv2d_int8=launch)
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(build, "stream", lambda t: 0)
+    monkeypatch.setattr(tconv, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(tconv, "smem_bytes", lambda cin, bc, kh, kw, st,
+                        rq=True, msub=1: int8_layout(cin, bc, kh, kw, st,
+                                                     rq, msub).total)
+    monkeypatch.setattr(tconv, "launches", 0)
+    monkeypatch.setattr(tconv, "launches_cout_blocks", 0)
+    for (cin, cout), hw in zip(VAE_CONVS[2:], ((32, 64), (16, 32), (8, 16))):
+        x = torch.zeros((16,) + hw + (cin,), dtype=torch.int8)
+        w = torch.zeros((3, 3, cin, cout), dtype=torch.int8)
+        out = tconv.conv2d_int8(x, w, torch.ones(cout), torch.zeros(cout),
+                                x_scale=0.02, stride=2, act="relu",
+                                requant_scale=0.05)
+        assert out.shape == (16, hw[0] // 2, hw[1] // 2, cout)
+    assert seen == [0, 96, 32]
+    assert (tconv.launches, tconv.launches_cout_blocks) == (3, 0)
+
+
+@pytest.mark.parametrize("cin,cout,bc", [(96, 144, 96), (144, 144, 32)])
+def test_fitted_block_grid_matches_reference(cin, cout, bc):
+    """The fitted channel-blocked grid at the VAE's two wide convs (one
+    image, 8x16 and 6x10 maps, stride 2) equals the reference's
+    whole-Cout kernel bit for bit."""
+    for b, h, w in ((1, 8, 16), (1, 6, 10)):
+        x, wq, ws, bb = _int8_case(b, h, w, cin, cout, cin + h)
+        kw = dict(x_scale=0.0301, stride=2, padding="SAME", act="relu",
+                  requant_scale=0.0421)
+        want = _reference_int8(x, wq, ws, bb, **kw)
+        got = emulate_conv2d_int8(x, wq, ws, bb, cout_per_block=bc, **kw)
+        np.testing.assert_array_equal(got, want)
+
+
 def test_sub_tiles_rule():
     """The wrapper's pick of 4-row sub-tiles per tile: the most whose
     block fits three to an SM while at least four tiles per SM remain

@@ -18,7 +18,9 @@ the GPU machine:
 The autotuner's kernel variants (the channel-blocked int8 conv grid, a
 pre-padded input, prepacked matmul weights) are bit-exact to the plain
 versions; the fp32 conv is held to 1e-4, the reference's own tolerance
-for its fp32 conv kernel (tests/test_kernels.py).
+for its fp32 conv kernel (tests/test_kernels.py). The VAE's sampler holds
+its threefry bits exactly and eps and the sample to 2e-6 relative (atol
+1e-6): the card's log1pf and expf against PyTorch's.
 """
 import ctypes
 
@@ -35,10 +37,12 @@ from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import int8_matmul as tmm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quantize as tquant
+from repro_torch.kernels import sample as tsample
 from repro_torch.kernels import ssd as tssd
 from repro_torch.kernels.epilogue import pad_channel_params
 from repro_torch.models import cnet_plus_scalar as tcnet
 from repro_torch.models import lm as tlm
+from repro_torch.models import vae_encoder as tvae
 
 pytestmark = pytest.mark.gpu
 
@@ -208,7 +212,8 @@ def test_card_engine_matches_cpu_engine(cuda_device, cpu_engine):
     assert kops.launch_counts() == {"int8_matmul": 2, "conv2d_int8": 3,
                                     "conv2d_int8_cout_blocks": 0,
                                     "conv2d": 0, "quantize_apply": 0,
-                                    "flash_attention": 0, "ssd": 0}
+                                    "flash_attention": 0, "ssd": 0,
+                                    "sample_normal": 0}
     assert torch.equal(got, cpu_engine.run_batch(batch, "accel")["head"])
     torch.testing.assert_close(
         card.run_batch(batch, "flex")["head"].cpu(),
@@ -794,8 +799,13 @@ def test_cuda_tensors_the_kernels_cannot_take_raise(cuda_device):
     x = torch.zeros((1, 32, 32, 128), dtype=torch.int8, device=cuda_device)
     w = torch.zeros((3, 3, 128, 512), dtype=torch.int8, device=cuda_device)
     ws = torch.ones(512, device=cuda_device)
+    # a filter whose every slice of 8 channels is over 232,448 B (16 rows
+    # of 3 x 3 x 4096 codes): no channel block fits one block
+    xw = torch.zeros((1, 8, 8, 4096), dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
-        tconv.conv2d_int8(x, w, ws)         # whole-Cout: 590 KB of filter
+        tconv.conv2d_int8(xw, torch.zeros((3, 3, 4096, 16), dtype=torch.int8,
+                                          device=cuda_device),
+                          torch.ones(16, device=cuda_device))
     with pytest.raises(ValueError, match="does not match geometry"):
         tconv.conv2d_int8(x, w, ws, cout_per_block=64, pre_padded=True,
                           in_hw=(32, 32))
@@ -816,6 +826,89 @@ def test_cuda_tensors_the_kernels_cannot_take_raise(cuda_device):
                         prepacked=True, n_out=13)
     torch.cuda.synchronize()
     assert kops.launch_counts() == before
+
+
+# the VAE's five stride-2 int8 convs at B=16: (H, W, Cin, Cout)
+VAE_CONVS = ((128, 256, 3, 8), (64, 128, 8, 32), (32, 64, 32, 96),
+             (16, 32, 96, 144), (8, 16, 144, 144))
+
+
+@pytest.mark.parametrize("h,w,cin,cout", VAE_CONVS)
+def test_vae_int8_convs_match_plain(cuda_device, h, w, cin, cout):
+    """Bit-exact to the plain (whole-Cout) version at the served shapes,
+    each one launch counted as ``conv2d_int8``: the two whose filter slice
+    does not fit one block (96 -> 144, 144 -> 144) run the channel-blocked
+    grid with the largest block that fits."""
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randint(-127, 128, (16, h, w, cin), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    wq = torch.randint(-127, 128, (3, 3, cin, cout), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    ws = (torch.rand(cout, generator=g) * 0.01).to(cuda_device)
+    b = torch.randn(cout, generator=g).to(cuda_device)
+    kw = dict(x_scale=0.0211, stride=2, act="relu", requant_scale=0.0377)
+    kops.reset_launch_counts()
+    got = tconv.conv2d_int8(x, wq, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert (tconv.launches, tconv.launches_cout_blocks) == (1, 0)
+    fits = tconv.smem_bytes(cin, cout, 3, 3, 2) <= tconv._SMEM_LIMIT
+    assert fits == (cout < 144)
+    assert torch.equal(got, tconv.conv2d_int8_plain(x, wq, ws, b, **kw))
+
+
+@pytest.mark.parametrize("b,n", [(16, 6), (3, 1000), (1, 70000)])
+def test_sample_normal_kernel_matches_plain(cuda_device, b, n):
+    """The kernel's threefry bits equal the plain version's exactly; eps
+    (mu = 0, logvar = 0) and a sample hold to the plain version within
+    2e-6 relative (atol 1e-6): the card's log1pf and expf against
+    PyTorch's."""
+    rng = np.random.default_rng(b + n)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, size=(b, 2),
+                                         dtype=np.uint32).astype(np.int64))
+    keys[0] = 2 ** 32 - 1
+    kops.reset_launch_counts()
+    bits = tsample.random_bits_kernel(keys, n, cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(bits.cpu(), tsample.random_bits(keys, n))
+    zeros = torch.zeros((b, n), device=cuda_device)
+    eps = kops.sample_normal(zeros, zeros, keys)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(eps.cpu(), tsample.normal_plain(keys, n),
+                               rtol=2e-6, atol=1e-6)
+    mu = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+    lv = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32))
+    got = kops.sample_normal(mu.to(cuda_device), lv.to(cuda_device), keys)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(),
+                               tsample.sample_normal_plain(mu, lv, keys),
+                               rtol=2e-6, atol=1e-6)
+    assert kops.launch_counts()["sample_normal"] == 3
+
+
+def test_card_vae_engine_matches_cpu_engine(cuda_device):
+    """A narrow VAE (32x64x3, the published channels) on the card against
+    the same engine on the CPU: mu and logvar bit-exact (an int8 chain),
+    the sample within 2e-6 given the same keys; one sampler launch."""
+    shape = (32, 64, 3)
+    cpu = Engine(tvae.build_graph(shape), tvae.init_params(3, shape),
+                 device="cpu")
+    rng = np.random.default_rng(3)
+    cpu.calibrate([tvae.synthetic_input(rng, shape) for _ in range(4)])
+    card = Engine(cpu.graph, {n: {k: v.to(cuda_device) for k, v in p.items()}
+                              for n, p in cpu.params.items()},
+                  device=cuda_device)
+    card.share_calibration(cpu)
+    batch = tvae.synthetic_batch(rng, 4, shape)
+    keys = rng.integers(0, 2 ** 32, size=(4, 2), dtype=np.uint32)
+    want = cpu.run_batch(batch, "accel", rngs=keys)
+    kops.reset_launch_counts()
+    got = card.run_batch(batch, "accel", rngs=keys)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["sample_normal"] == 1
+    assert torch.equal(got["mu"].cpu(), want["mu"])
+    assert torch.equal(got["logvar"].cpu(), want["logvar"])
+    torch.testing.assert_close(got["sample"].cpu(), want["sample"],
+                               rtol=2e-6, atol=1e-6)
 
 
 def test_card_autotuned_engine_matches_cpu_engine(cuda_device):

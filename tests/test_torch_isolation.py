@@ -129,7 +129,7 @@ def test_lm_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_launcher_rejects_bad_lists_and_envelope_flags():
-    for argv in (["--model", "vae_encoder"], ["--backend", "dpu"],
+    for argv in (["--model", "no_such_model"], ["--backend", "dpu"],
                  ["--burst-j", "1", "--device", "cpu"]):
         with pytest.raises(SystemExit):
             serve.build_scheduler(serve.parser().parse_args(argv))

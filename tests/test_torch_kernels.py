@@ -281,10 +281,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                      torch.zeros((3, 3, 2, 20), dtype=torch.int8),
                      torch.ones(20), cout_per_block=8)
     tops.conv2d(torch.zeros((1, 4, 4, 2)), torch.zeros((3, 3, 2, 5)))
+    tops.sample_normal(torch.zeros(2, 6), torch.zeros(2, 6),
+                       torch.zeros(2, 2, dtype=torch.int64))
     assert tops.launch_counts() == {"int8_matmul": 0, "conv2d_int8": 0,
                                     "conv2d_int8_cout_blocks": 0,
                                     "conv2d": 0, "quantize_apply": 0,
-                                    "flash_attention": 0, "ssd": 0}
+                                    "flash_attention": 0, "ssd": 0,
+                                    "sample_normal": 0}
 
 
 def test_other_devices_are_refused():
