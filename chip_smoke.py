@@ -28,7 +28,24 @@ functions:
   plan gives (``qplans``), and held against the port's CPU engine: int8
   chains bit-exact, fp32 conv3d feeding an int8 dense within the
   reference's accel bound, ESPERTA's prob to 1e-6, the VAE's sample to
-  2e-6; one B=16 dispatch of baseline_net and of vae_encoder profiled.
+  2e-6; one B=16 dispatch of baseline_net and of vae_encoder profiled;
+* the degraded-mode path (``fault_path``): CNet and the VAE on
+  ``accel,flex`` under the modeled clock with the fault controller armed
+  through the launcher's ``arm_faults``: (a) 20 canary checks per model
+  with no flip all pass, (h) launching what the plans give per B=1
+  dispatch; (b) CNet's canary digest equals the CPU engine's; (c) a
+  pinned fc1 flip gives the CPU engine's flipped output bit for bit and
+  a repack restores the digest; (d) a seeded orbit storm (single, MBU and
+  control upsets) detected, recovered, every request served once, its
+  report, event ledger and dispatch records equal to the same storm
+  replayed on the CPU engines; (g) the storm cut with ``stop_at``,
+  checkpointed, rebooted through ``build_scheduler`` and resumed equal
+  to the uninterrupted run; (e) ``--recovery demote`` dispatching on
+  flex while accel is quarantined; (f) ``--protection ecc`` correcting a
+  short burst at injection and scrubbing a wide one, ``tmr`` masking
+  every arena upset; (i) the card's wall time of a canary check and of a
+  full-arena repack (beside the ZCU104 model's price), and a canary
+  dispatch's device time by the profiler.
 
 Besides the kernels those paths run, the fp32 ``conv2d`` (on no served
 path, as in the reference) is held against its plain version and timed
@@ -141,6 +158,34 @@ QUANTIZE_WEIGHTS = (
     ("mms", "logistic head", 2048, 4), ("mms", "reduced fc1", 1024, 43),
     ("mms", "reduced head", 43, 4), ("mms", "baseline fc1", 12288, 73),
     ("mms", "baseline head", 73, 4))
+# the degraded-mode path (fault_path): CNet and the VAE armed on
+# accel,flex; each canary is one B=1 accel dispatch (the plans' launches)
+FAULT_MODELS = ("cnet_plus_scalar", "vae_encoder")
+FAULT_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply",
+                 "sample_normal")
+CANARY_CHECKS = 20
+CANARY_LAUNCHES = {
+    "cnet_plus_scalar": {"conv2d_int8": 3, "conv2d_int8_cout_blocks": 0,
+                         "int8_matmul": 2, "int8_matmul:splitk": 2,
+                         "sample_normal": 0},
+    "vae_encoder": {"conv2d_int8": 5, "conv2d_int8_cout_blocks": 0,
+                    "int8_matmul": 2, "int8_matmul:splitk": 2,
+                    "sample_normal": 1},
+}
+REPACKS = 10
+# the storms (seeds fixed so that the checks have something to see): the
+# default orbit (2 upsets/s, SAA x40), seed 1, lands single, MBU and
+# control upsets, each arena one seen by a canary; a flat Poisson storm
+# under demotion; the same orbit under ECC (seed 3: short and wide
+# bursts) and TMR
+STORM_ARGS = ("--radiation", "orbit", "--fault-seed", "1")
+DEMOTE_ARGS = ("--fault-rate", "20", "--self-test-period", "0.02",
+               "--recovery", "demote", "--fault-seed", "1")
+ECC_ARGS = ("--radiation", "orbit", "--protection", "ecc", "--fault-seed",
+            "3")
+TMR_ARGS = ("--radiation", "orbit", "--protection", "tmr", "--fault-seed",
+            "1")
+ECC_DOMAINS = 4                 # FaultConfig.interleave_domains' default
 # every pallas_call of the reference has a record in the kernels line
 # (int8_matmul one for each of its two CUDA kernels)
 TPU_KERNELS = {
@@ -271,6 +316,17 @@ def exact(torch, got, want) -> float:
     if not torch.equal(got, want):
         raise AssertionError(f"not bit-exact: max |diff| {err}")
     return err
+
+
+def cpu_engine_of(card_engine):
+    """The port's CPU engine (the plain versions) over the card engine's
+    params and calibration."""
+    from repro_torch.core.engine import Engine
+    cpu = Engine(card_engine.graph,
+                 {n: {k: v.cpu() for k, v in p.items()}
+                  for n, p in card_engine.params.items()}, device="cpu")
+    cpu.share_calibration(card_engine)
+    return cpu
 
 
 @phase("build: nvcc -gencode arch=compute_90a,code=sm_90a, one process per "
@@ -1156,11 +1212,7 @@ def serve_phase(torch):
        "bit-exact")
 def reference_phase(torch, sched, card_engine, inputs):
     import numpy as np
-    from repro_torch.core.engine import Engine
-    cpu = Engine(card_engine.graph,
-                 {n: {k: v.cpu() for k, v in p.items()}
-                  for n, p in card_engine.params.items()}, device="cpu")
-    cpu.share_calibration(card_engine)
+    cpu = cpu_engine_of(card_engine)
     comps = sorted(sched.completions, key=lambda c: c.rid)
     t0 = time.perf_counter()
     worst = 0.0
@@ -1251,12 +1303,8 @@ def space_reference_phase(torch, name, sched, card_engine, inputs):
     same keys, within 2e-6 (the served keys come from the pipeline's seed
     chain)."""
     import numpy as np
-    from repro_torch.core.engine import Engine
     from repro_torch.models import esperta
-    cpu = Engine(card_engine.graph,
-                 {n: {k: v.cpu() for k, v in p.items()}
-                  for n, p in card_engine.params.items()}, device="cpu")
-    cpu.share_calibration(card_engine)
+    cpu = cpu_engine_of(card_engine)
     qplans = card_engine.planned("accel").qplans
     comps = sorted(sched.completions, key=lambda c: c.rid)
     t0 = time.perf_counter()
@@ -1712,6 +1760,327 @@ def lm_tuned_phase(torch, lm):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The degraded-mode path: serving under single-event upsets
+# ---------------------------------------------------------------------------
+
+
+def fault_args(*extra, device=None):
+    """The fault path's launcher arguments: CNet and the VAE (published
+    widths) on ``accel,flex`` under the modeled clock, so that a storm's
+    ledger depends on the data alone and replays on any device."""
+    from repro_torch.launch import serve
+    argv = ["--mode", "space", "--model", ",".join(FAULT_MODELS),
+            "--backend", "accel,flex", "--clock", "modeled", "--requests",
+            str(N_REQUESTS), "--batch", str(LADDER_TOP), *extra]
+    if device is not None:
+        argv += ["--device", device]
+    return serve.parser().parse_args(argv)
+
+
+def flip_candidates(k: int, n: int):
+    """fc1's bytes in a fixed probing order: the background-flux scalar's
+    row (the last of K), then one row in every 512 of the image features,
+    a few columns each."""
+    for col in range(0, n, 7):
+        yield (k - 1) * n + col
+    for row in range(0, k - 1, 512):
+        for col in range(0, n, 23):
+            yield row * n + col
+
+
+def ledger(sched, ctl):
+    """What a storm decides, device-independent under the modeled clock:
+    the controller's report (the event ledger in it), the dispatch records
+    and the completion ids in completion order."""
+    import dataclasses
+    return (ctl.report(), [dataclasses.asdict(d) for d in sched.dispatches],
+            [c.rid for c in sched.completions])
+
+
+def check_storm(sched, ctl, trace, label):
+    """Every upset detected and recovered, every request served once."""
+    rep = ctl.report()
+    open_ = [e for e in rep["events"]
+             if e["detected_at"] is None or e["recovered_at"] is None]
+    kinds = {k: v["n_injected"] for k, v in rep["per_class"].items()}
+    actions = sorted({e["action"] for e in rep["events"]})
+    print(f"   [{label}] injected {rep['n_injected']} {kinds}, detected "
+          f"{rep['n_detected']}, recovered {rep['n_recovered']}, self-tests "
+          f"{rep['n_self_tests']}, scrubs {rep['n_scrubs']}, corrected "
+          f"{rep['n_corrected']}, actions {actions}; max detection latency "
+          f"{rep['max_detection_latency_s'] * 1e3:.3f} ms; overhead "
+          f"{rep['overhead_energy_j'] * 1e3:.3f} mJ (ZCU104 model)")
+    assert rep["n_injected"] >= 1, rep["n_injected"]
+    assert not open_, open_
+    ids = sorted(c.rid for c in sched.completions)
+    assert ids == list(range(len(trace))), "a request lost or served twice"
+    return rep
+
+
+@phase("fault path (a, b, c, h, i): golden canaries of CNet and the VAE on "
+       "the card; a pinned fc1 flip against the CPU engine; repack")
+def fault_canary_phase(torch, args):
+    import numpy as np
+    from repro_torch.core import energy, faults
+    from repro_torch.core.pipeline import ServingPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    gpu = gpu_line()
+    sched, trace, engines = serve.build_scheduler(args)
+    ctl = serve.arm_faults(args, sched, trace)
+    for name, am in ctl._models.items():
+        # (a) no false detection, (h) the plan's launches per dispatch
+        before = counts_with_routes(ops)
+        walls = []
+        for _ in range(CANARY_CHECKS):
+            t0 = time.perf_counter()
+            ok, got = am.canary.check()
+            walls.append(time.perf_counter() - t0)
+            assert ok, f"{name}: canary {got} != pinned {am.canary.digest}"
+        after = counts_with_routes(ops)
+        got = {k: after[k] - before[k] for k in CANARY_LAUNCHES[name]}
+        want = {k: CANARY_CHECKS * v
+                for k, v in CANARY_LAUNCHES[name].items()}
+        print(f"   {name}: {CANARY_CHECKS} canary checks passed (digest "
+              f"{am.canary.digest[:16]}); launches {got}")
+        assert got == want, (got, want)
+        walls.sort()
+        print(f"   (i) {name} canary check wall median "
+              f"{walls[len(walls) // 2] * 1e3:.3f} ms (min "
+              f"{walls[0] * 1e3:.3f}) on {gpu}")
+    # (b) CNet's int8 chain is bit-exact: the CPU engine pins the digest
+    cnet = ctl._models["cnet_plus_scalar"]
+    cpu = cpu_engine_of(engines["cnet_plus_scalar"])
+    cpu_canary = faults.GoldenCanary(
+        "cnet_plus_scalar",
+        ServingPipeline(cpu, "accel", cnet.canary.pipeline.batch_size),
+        cnet.canary.reqs)
+    assert cpu_canary.digest == cnet.canary.digest, "CNet digest card/CPU"
+    print("   (b) CNet canary digest on the card equals the CPU engine's; "
+          "the VAE's held run against run by (a)")
+    # (c) a pinned flip in fc1 (the split-K kernel's weights): the first
+    # candidate, in a fixed order, whose flip the canary sees
+    plan, cpu_plan = cnet.plan, cpu.planned("accel")
+    k, n = plan.host_weights["fc1_act"].shape
+    pristine = cnet.canary.reference["head"]
+    for byte in flip_candidates(k, n):
+        faults.SEUInjector(0).flip(plan, node="fc1_act", byte=byte, bit=7)
+        flipped = cnet.canary.run()["head"]
+        if not np.array_equal(flipped, pristine):
+            break
+        plan.repack_weights()
+    else:
+        raise AssertionError("no fc1 flip candidate reached the output")
+    assert plan.weight_arena["fc1_act"].device.type == "cuda"
+    faults.SEUInjector(0).flip(cpu_plan, node="fc1_act", byte=byte, bit=7)
+    want = cpu_canary.run()["head"]
+    exact(torch, torch.from_numpy(flipped), torch.from_numpy(want))
+    assert not cnet.canary.check()[0]
+    nbytes = plan.repack_weights()
+    cpu_plan.repack_weights()
+    assert cnet.canary.check()[0], "repack did not restore the digest"
+    print(f"   (c) fc1_act byte {byte} (row {byte // n} col {byte % n}) bit "
+          f"7: card output equals the CPU engine's under the same flip, "
+          f"bit for bit (head {pristine.ravel()[:1]} -> "
+          f"{flipped.ravel()[:1]}); repack of {nbytes} B restored the "
+          f"pristine digest")
+    # (i) one full-arena repack, host to device, and its modeled price
+    walls = []
+    for _ in range(REPACKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan.repack_weights()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    model = energy.repack_cost(energy.BACKEND_HW[plan.backend], nbytes)
+    print(f"   (i) CNet full-arena repack ({nbytes} B) wall median "
+          f"{walls[len(walls) // 2] * 1e3:.3f} ms (min "
+          f"{walls[0] * 1e3:.3f}) on {gpu}; the paper's ZCU104 model "
+          f"prices it {model.seconds * 1e3:.3f} ms, {model.energy_j * 1e3:.3f}"
+          f" mJ (a model, not the card)")
+    assert cnet.canary.check()[0]
+    # (i) the profiler's device time of one canary dispatch
+    for name, am in ctl._models.items():
+        rows = profile_rows(torch, [am.canary.check])
+        us = sum(r[0] for r in rows)
+        print(f"   (i) {name} canary dispatch device time "
+              + (f"{us:.1f} us" if rows else "not measured")
+              + f" (profiler) on {gpu}")
+        for dev_us, count, key in rows[:8]:
+            print(f"     {dev_us:8.1f} us  x{count:<3d} {key[:90]}")
+    return sched, ctl, trace, engines
+
+
+@phase("fault path (d): an orbit radiation storm (--radiation orbit "
+       "--clock modeled --recovery repack) on the card, replayed on the "
+       "port's CPU engines")
+def fault_storm_phase(torch, args, sched, ctl, trace, engines):
+    from repro_torch.core.scheduler import ContinuousBatchingScheduler
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    end = sched.serve_trace(trace)
+    wall = time.perf_counter() - t0
+    rep = check_storm(sched, ctl, trace, "orbit storm, card")
+    for kind in ("single", "mbu", "control"):
+        assert rep["per_class"][kind]["n_injected"] >= 1, kind
+    print(f"   {len(trace)} requests over {len(sched.models)} models, "
+          f"{len(sched.dispatches)} dispatches, virtual {end:.4f} s, wall "
+          f"{wall:.3f} s")
+    for e in rep["events"]:
+        print(f"     t={e['t_injected']:.5f} {e['model']} {e['kind']} "
+              f"{e['node']} byte {e['byte']} bit {e['bit']} span "
+              f"{e['span']} {e['target']} -> {e['action']} at "
+              f"{e['recovered_at']:.5f}")
+    # the same storm on the port's CPU engines (the plain versions),
+    # registered as the launcher registers them, with no warm-up
+    cpu = ContinuousBatchingScheduler(clock=args.clock,
+                                      pipeline=args.pipeline,
+                                      staging_buffers=args.staging_buffers)
+    for name, e in engines.items():
+        cpu.register(name, cpu_engine_of(e),
+                     backend=tuple(args.backend.split(",")),
+                     ladder=serve.capped_ladder(args.batch),
+                     keep_predicate=serve.KEEP_PREDICATES.get(name))
+    cpu_ctl = serve.arm_faults(args, cpu, trace)
+    t0 = time.perf_counter()
+    cpu.serve_trace(trace)
+    assert ledger(cpu, cpu_ctl) == ledger(sched, ctl), "card vs CPU ledger"
+    print(f"   CPU replay of all {len(trace)} requests ({len(cpu.dispatches)}"
+          f" dispatches, {time.perf_counter() - t0:.1f} s): report, event "
+          f"ledger, dispatch records and completion ids equal the card's")
+    return ledger(sched, ctl)
+
+
+def _cut(events):
+    """A stop time inside the storm with no upset open: after the first
+    events' last recovery, before the next injection."""
+    evs = sorted(events, key=lambda e: e["t_injected"])
+    for i in range(1, len(evs)):
+        done = max(e["recovered_at"] for e in evs[:i])
+        if done < evs[i]["t_injected"]:
+            return done + 1e-9
+    raise AssertionError("no quiet instant inside the storm")
+
+
+@phase("fault path (g): the storm cut mid-way, checkpointed, rebooted "
+       "through build_scheduler and resumed")
+def fault_checkpoint_phase(torch, args, full, tmp):
+    from repro_torch.core import faults
+    from repro_torch.launch import serve
+    stop = _cut(full[0]["events"])
+    sched, trace, _ = serve.build_scheduler(args)
+    ctl = serve.arm_faults(args, sched, trace)
+    cut = sched.serve_trace(trace, stop_at=stop)
+    assert all(e.recovered_at is not None for e in ctl.events)
+    assert ctl._pending, "nothing of the storm left after the cut"
+    path = str(tmp / "ledger.npz")
+    faults.save_checkpoint(path, {"sched": sched.state_dict(),
+                                  "faults": ctl.state_dict()})
+    n_done, n_queued = len(sched.completions), sched.pending()
+    del sched, ctl
+    torch.cuda.empty_cache()
+    # the reboot: fresh engines (pristine arenas), re-armed, then the
+    # ledger overlaid and the rest of the trace replayed
+    sched, trace, _ = serve.build_scheduler(args)
+    ctl = serve.arm_faults(args, sched, trace)
+    ck = faults.load_checkpoint(path)
+    sched.load_state_dict(ck["sched"])
+    ctl.load_state_dict(ck["faults"])
+    rest = [e for e in trace if e[0] > cut + 1e-12]
+    sched.serve_trace(rest, start=cut)
+    check_storm(sched, ctl, trace, "resumed storm")
+    assert ledger(sched, ctl) == full, "resumed run differs"
+    print(f"   cut at t={cut:.5f} s ({n_done} completed, {n_queued} queued, "
+          f"{len(ctl._pending)} upsets pending); resumed over "
+          f"{len(rest)} arrivals: dispatch records, completion ids and the "
+          f"event ledger equal the uninterrupted run's")
+
+
+@phase("fault path (e): --recovery demote, accel quarantined, dispatch on "
+       "flex, repaired")
+def fault_demote_phase(torch, args):
+    from repro_torch.launch import serve
+    sched, trace, _ = serve.build_scheduler(args)
+    ctl = serve.arm_faults(args, sched, trace)
+    sched.serve_trace(trace)
+    rep = check_storm(sched, ctl, trace, "demote storm")
+    windows = [(e["detected_at"], e["recovered_at"]) for e in rep["events"]
+               if e["action"] == "demote+repack"]
+    assert windows, "no demotion"
+    flex = [d for d in sched.dispatches if d.backend == "flex"]
+    inside = [d for d in flex
+              if any(lo <= d.started <= hi for lo, hi in windows)]
+    assert inside, "no dispatch ran on flex while accel was quarantined"
+    assert not any(s.quarantined for s in sched._svcs.values())
+    print(f"   {len(inside)} of {len(sched.dispatches)} dispatches on flex "
+          f"inside {len(windows)} quarantine window(s); accel "
+          f"un-quarantined after each repair")
+
+
+@phase("fault path (f): --protection ecc (correct at injection, scrub "
+       "catches a wide burst) and --protection tmr (every upset masked)")
+def fault_protection_phase(torch, ecc_args, tmr_args):
+    from repro_torch.launch import serve
+    for mode, args in (("ecc", ecc_args), ("tmr", tmr_args)):
+        sched, trace, _ = serve.build_scheduler(args)
+        ctl = serve.arm_faults(args, sched, trace)
+        sched.serve_trace(trace)
+        rep = check_storm(sched, ctl, trace, f"{mode} storm")
+        arena = [e for e in rep["events"] if e["kind"] != "control"]
+        for name, am in ctl._models.items():
+            assert sched._svcs[name].protection == mode
+            for r in sched._svcs[name].ladder:
+                assert sched._svcs[name].costs[("accel", r)].protection \
+                    == mode
+        if mode == "ecc":
+            short = [e for e in arena if e["kind"] == "mbu"
+                     and e["span"] <= ECC_DOMAINS
+                     and e["action"] == "ecc-correct"]
+            wide = [e for e in arena if e["span"] > ECC_DOMAINS
+                    and e["action"] == "scrub+repack"]
+            assert short and wide, (short, wide)
+            print(f"   ecc: {len(short)} burst(s) of <= {ECC_DOMAINS} bytes "
+                  f"corrected at injection, {len(wide)} wider caught by the "
+                  f"scrub ({rep['n_scrubs']} scrubs)")
+        else:
+            assert arena and all(e["action"] == "tmr-mask" for e in arena)
+            assert ctl.injector.n_flips == 0
+            print(f"   tmr: all {len(arena)} arena upsets masked, no byte "
+                  f"of the arena flipped")
+        del sched, ctl
+        torch.cuda.empty_cache()
+
+
+def fault_path(torch):
+    """Drive the degraded-mode stack on the card: (a)-(i). Returns the
+    launch counts of the whole path, or None if a phase failed."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    args = fault_args(*STORM_ARGS)
+    armed = fault_canary_phase(torch, args)
+    if armed is None:
+        return None
+    full = fault_storm_phase(torch, args, *armed)
+    del armed
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_faults_"))
+    try:
+        if full is not None:
+            fault_checkpoint_phase(torch, args, full, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fault_demote_phase(torch, fault_args(*DEMOTE_ARGS))
+    fault_protection_phase(torch, fault_args(*ECC_ARGS),
+                           fault_args(*TMR_ARGS))
+    counts = counts_with_routes(ops)
+    print(f"   fault path launch counts: {counts}")
+    if counts["int8_matmul:splitk"] != counts["int8_matmul"]:
+        FAILURES.append("the fault path's int8_matmul left split-K")
+    return None if full is None else counts
+
+
 def only(torch, src: Path, phases, kernels=None) -> int:
     """Build ``src``'s kernels (``kernels``: those named, else all) and run
     ``phases`` only (a phase's extra arguments ride in a tuple beside
@@ -1826,7 +2195,12 @@ def main() -> int:
             counts = lm_tuned_phase(torch, lm)
             if counts is not None:
                 paths["lm --autotune"] = (TUNED_LM_KERNELS, counts)
-        if len(paths) != 4 + len(SPACE_MODELS):
+            del sched, lm
+            torch.cuda.empty_cache()
+        counts = fault_path(torch)
+        if counts is not None:
+            paths["fault_phase"] = (FAULT_KERNELS, counts)
+        if len(paths) != 5 + len(SPACE_MODELS):
             FAILURES.append("a served path failed")
         for path, (names, counts) in paths.items():
             print(f"launches on the {path} path: {counts}")

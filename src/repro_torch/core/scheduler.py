@@ -301,6 +301,14 @@ class _ModelService:
         # observations EWMA as before.
         self.est_service: Dict[Tuple[str, int], float] = {}
         self._seeded: set = set()
+        # backends quarantined by the fault controller (demotion
+        # recovery): dispatch skips them until repaired. Empty set ->
+        # dispatch is identical to the unfaulted scheduler.
+        self.quarantined: set = set()
+        # arena protection mode applied by the fault controller: 'none'
+        # until `apply_protection` swaps the cost signatures for
+        # ECC/TMR-priced ones.
+        self.protection: str = "none"
         # per-service seed chain: each dispatch takes the next [2] uint32
         # seed, from which its pipeline derives one seed pair per sample
         self._rng = np.array(
@@ -310,6 +318,14 @@ class _ModelService:
     def next_rng(self) -> np.ndarray:
         self._rng, sub = split_seeds(self._rng, 2)
         return sub
+
+    @property
+    def active_backends(self) -> Tuple[str, ...]:
+        """Registration-ordered backends minus the quarantined set. If
+        EVERY backend is quarantined, serving beats stopping: fall back
+        to the full registration list rather than starve the queue."""
+        act = tuple(b for b in self.backends if b not in self.quarantined)
+        return act or self.backends
 
     def seed_service(self, backend: str, rung: int, seconds: float) -> None:
         """Install a modeled prior for the flush margin; replaced (not
@@ -335,7 +351,7 @@ class _ModelService:
         with its modeled CostSignature latency at register time, so the
         margin is cadence-correct from the very first flush decision;
         real observations replace the seeds as dispatches happen."""
-        primary = self.backends[0]
+        primary = self.active_backends[0]
         worst = max((t for (b, _), t in self.est_service.items()
                      if b == primary), default=0.0)
         return self.flush_safety * worst
@@ -427,6 +443,9 @@ class ContinuousBatchingScheduler:
         self._thread: Optional[threading.Thread] = None
         self._thread_error: Optional[BaseException] = None
         self._stop = threading.Event()
+        # optional degraded-mode controller (core/faults.py); None keeps
+        # serve_trace dispatch-for-dispatch the unfaulted loop
+        self._faults = None
 
     # -- setup --------------------------------------------------------------
 
@@ -508,6 +527,35 @@ class ContinuousBatchingScheduler:
     def models(self) -> List[str]:
         return list(self._order)
 
+    def attach_faults(self, controller) -> None:
+        """Attach a :class:`~repro_torch.core.faults.FaultController`:
+        ``serve_trace`` ticks it every scheduling round (injection + due
+        self-tests) and lets its pending event times drive the idle
+        virtual-clock jumps."""
+        self._faults = controller
+
+    def apply_protection(self, model: str, mode: str,
+                         costs: Dict[Tuple[str, int], CostSignature]
+                         ) -> None:
+        """Swap a model's cost signatures for protection-priced ones: the
+        fault controller re-prices the protected (backend, rung) cells
+        through `energy.protected_signature` and installs them here, so
+        backend ranking, envelope admission and the modeled clock all see
+        the ECC decode drag / TMR power tripling. Unlisted cells keep
+        their unprotected signatures. Under the modeled clock the affected
+        service estimates are re-seeded: the simulation serves on the
+        protected timeline."""
+        with self._lock:
+            svc = self._svcs[model]
+            for key, sig in costs.items():
+                if key not in svc.costs:
+                    raise KeyError(f"{model!r} has no (backend, rung) "
+                                   f"cell {key}")
+                svc.costs[key] = sig
+                if self.clock == "modeled":
+                    svc.seed_service(key[0], key[1], sig.latency_s)
+            svc.protection = mode
+
     # -- submission ---------------------------------------------------------
 
     def submit(self, model: str, inputs: Dict[str, np.ndarray],
@@ -538,13 +586,13 @@ class ContinuousBatchingScheduler:
                         ) -> Tuple[Optional[str], Optional[Draw]]:
         """The energy-aware backend decision for one picked dispatch:
         no envelope -> the primary backend, unconditionally. Under an
-        envelope Under an envelope -> the admissible backend with the
+        envelope -> the admissible backend with the
         lowest modeled dispatch energy (ties resolve to registration
         order), charging the envelope; (None, None) means defer.
         Quarantined backends (fault demotion) are skipped entirely."""
         if self.envelope is None:
-            return svc.backends[0], None
-        ranked = sorted(svc.backends,
+            return svc.active_backends[0], None
+        ranked = sorted(svc.active_backends,
                         key=lambda b: svc.costs[(b, rung)].energy_j)
         for b in ranked:
             sig = svc.costs[(b, rung)]
@@ -758,7 +806,7 @@ class ContinuousBatchingScheduler:
         picked rung) of a due dispatch — how far a blocked virtual clock
         advances (step degrades rungs the same way)."""
         times = []
-        for b in svc.backends:
+        for b in svc.active_backends:
             for r in svc.ladder:
                 if r > rung:
                     break
@@ -829,10 +877,13 @@ class ContinuousBatchingScheduler:
         its measured execution time. Deterministic given the trace; returns
         the final virtual time.
 
-        ``stop_at`` halts the loop once the clock reaches that instant:
-        every arrival with ``t <=`` the returned time has been submitted,
-        in-flight tickets are retired, and queued-but-undispatched
-        requests stay queued."""
+        ``stop_at`` halts the loop once the clock reaches that instant —
+        the watchdog-reboot cut point: every arrival with ``t <=`` the
+        returned time has been submitted (accepted into a queue, hence
+        checkpointable), in-flight tickets are retired, and
+        queued-but-undispatched requests stay queued. The caller resumes
+        by replaying the remaining trace events (``t >`` the returned
+        time) into a restored scheduler."""
         ev = sorted(trace, key=lambda e: e[0])
         now, i, n = start, 0, len(ev)
         while i < n or self.pending():
@@ -841,6 +892,8 @@ class ContinuousBatchingScheduler:
                 i += 1
             if stop_at is not None and now >= stop_at - 1e-12:
                 break                           # accepted, not yet served
+            if self._faults is not None:
+                now = self._faults.tick(self, now)
             rec = self.step(now)
             if rec is not None:
                 now += rec.service_time         # server busy while computing
@@ -849,6 +902,10 @@ class ContinuousBatchingScheduler:
             ft = self.next_event_time(now)
             if ft is not None:
                 nxt = ft if nxt is None else min(nxt, ft)
+            if self._faults is not None:
+                et = self._faults.next_event_time(now)
+                if et is not None:
+                    nxt = et if nxt is None else min(nxt, et)
             if nxt is None:
                 if self.pending():
                     # only reachable under an envelope whose remaining
@@ -862,8 +919,117 @@ class ContinuousBatchingScheduler:
             # the clock strictly forward
             now = max(now + 1e-9, nxt) if nxt <= now else nxt
         self.sync()                     # end of stream: retire everything
+        if self._faults is not None and stop_at is None:
+            now = self._faults.finalize(self, now)
         return now
 
+    # -- checkpoint/restore -------------------------------------------------
+
+    def state_dict(self) -> Dict:
+        """The scheduler ledger as a plain-python/numpy tree: accepted
+        queues (request ids, inputs, ORIGINAL arrivals and deadlines),
+        EWMA service state, the per-model seed chain, quarantine sets,
+        dispatch and deferral records, and completion METADATA (outputs
+        are not checkpointed — completed results were already delivered,
+        and the restored records keep p50/p99/fill telemetry exact).
+
+        In-flight tickets are retired first (``sync()``): a checkpoint
+        cut is a quiesce point, never a torn dispatch. Plans, packed
+        weights and the pipeline timeline are NOT state — a reboot
+        re-registers the same models, then :meth:`load_state_dict`
+        overlays this ledger. Nothing in the tree is a torch tensor."""
+        self.sync()
+        with self._lock:
+            models = {}
+            for name, svc in self._svcs.items():
+                models[name] = {
+                    "deadline_s": svc.deadline_s,
+                    "backends": list(svc.backends),
+                    "ladder": list(svc.ladder),
+                    "n_submitted": svc.n_submitted,
+                    "n_deferred": svc.n_deferred,
+                    "last_deferred_rid": svc._last_deferred_rid,
+                    "queue": [
+                        {"rid": r.rid, "arrival": r.arrival,
+                         "deadline": r.deadline,
+                         "inputs": {k: np.asarray(v)
+                                    for k, v in r.inputs.items()}}
+                        for r in svc.queue],
+                    "est_service": [[b, r, t] for (b, r), t
+                                    in svc.est_service.items()],
+                    "seeded": [[b, r] for (b, r) in sorted(svc._seeded)],
+                    "rng": np.array(svc._rng, np.uint32),
+                    "quarantined": sorted(svc.quarantined),
+                }
+            return {
+                "version": 1,
+                "flush_safety": self.flush_safety,
+                "clock": self.clock,
+                "pipeline": self.pipeline,
+                "next_rid": self._next_rid,
+                "rr": self._rr,
+                "order": list(self._order),
+                "models": models,
+                "dispatches": [dataclasses.asdict(d)
+                               for d in self.dispatches],
+                "deferrals": [dataclasses.asdict(d)
+                              for d in self.deferrals],
+                "completions": [
+                    {"rid": c.rid, "model": c.model, "kept": bool(c.kept),
+                     "arrival": c.arrival, "finished": c.finished,
+                     "rung": c.rung, "n_real": c.n_real,
+                     "deadline": c.deadline}
+                    for c in self.completions],
+            }
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Overlay a :meth:`state_dict` ledger onto a freshly constructed
+        scheduler with the SAME models registered (same backends and
+        ladders — validated): the reboot protocol is re-register from
+        pristine plans, then restore. Restored completions carry their
+        metadata with empty ``outputs`` (already delivered pre-reboot)."""
+        if state.get("version") != 1:
+            raise ValueError(
+                f"unsupported scheduler checkpoint version "
+                f"{state.get('version')!r}")
+        with self._lock:
+            if sorted(self._svcs) != sorted(state["models"]):
+                raise ValueError(
+                    f"checkpoint models {sorted(state['models'])} do not "
+                    f"match registered models {sorted(self._svcs)}")
+            for name, ms in state["models"].items():
+                svc = self._svcs[name]
+                if (list(svc.backends) != list(ms["backends"])
+                        or list(svc.ladder) != list(ms["ladder"])):
+                    raise ValueError(
+                        f"checkpoint for {name!r} was taken with backends="
+                        f"{ms['backends']} ladder={ms['ladder']}; "
+                        f"re-register to match before restoring")
+                svc.deadline_s = float(ms["deadline_s"])
+                svc.n_submitted = int(ms["n_submitted"])
+                svc.n_deferred = int(ms["n_deferred"])
+                lr = ms["last_deferred_rid"]
+                svc._last_deferred_rid = None if lr is None else int(lr)
+                svc.queue.clear()
+                for q in ms["queue"]:
+                    svc.queue.append(Request(
+                        int(q["rid"]), name,
+                        {k: np.asarray(v) for k, v in q["inputs"].items()},
+                        float(q["arrival"]), float(q["deadline"])))
+                svc.est_service = {(str(b), int(r)): float(t)
+                                   for b, r, t in ms["est_service"]}
+                svc._seeded = {(str(b), int(r)) for b, r in ms["seeded"]}
+                svc._rng = np.asarray(ms["rng"], dtype=np.uint32).copy()
+                svc.quarantined = set(ms["quarantined"])
+            self._next_rid = int(state["next_rid"])
+            self._rr = int(state["rr"])
+            self._order = list(state["order"])
+            self.dispatches = [DispatchRecord(**d)
+                               for d in state["dispatches"]]
+            self.deferrals = [DeferralRecord(**d)
+                              for d in state["deferrals"]]
+            self.completions = [Completion(outputs={}, **c)
+                                for c in state["completions"]]
 
     # -- asynchronous (wall-clock) mode -------------------------------------
 

@@ -24,6 +24,17 @@ blocking) and keeps the fastest; on the CPU nothing differs and nothing is
 timed. Tuned and untuned plans give bit-identical int8
 outputs.
 
+``--fault-rate``/``--self-test-period`` (space mode) arm the
+degraded-mode fault controller (``core/faults.py``): seeded SEU flips in
+the accel weight arenas, golden-canary self-tests, and ``--recovery
+repack|demote``. ``--radiation orbit`` samples a typed single/MBU/control
+upset schedule from the orbit's rate trace instead (``core/radiation.py``;
+``--base-upset-rate``, ``--saa-factor``, ``--protection none|ecc|tmr``,
+``--checkpoint-cadence auto``). ``--checkpoint PATH`` restores the
+scheduler ledger from PATH before serving when the file exists (the
+watchdog-reboot path) and saves it after. Use ``--clock modeled`` for a
+storm that replays identically on any device.
+
 Runs on the card; ``--device cpu`` runs every kernel's plain PyTorch
 version on the CPU instead.
 
@@ -36,15 +47,21 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --mode space \\
         --model cnet_plus_scalar --backend accel --autotune \\
         --tuning-cache tuning.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode space \\
+        --model logistic_net --backend accel,cpu --clock modeled \\
+        --radiation orbit --protection ecc --checkpoint ledger.npz
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 
+from repro_torch.core import faults as faults_mod
 from repro_torch.core import inspector
+from repro_torch.core import radiation as radiation_mod
 from repro_torch.core.energy import PowerEnvelope
 from repro_torch.core.engine import Engine
 from repro_torch.core.scheduler import (BACKENDS, ContinuousBatchingScheduler,
@@ -78,6 +95,40 @@ def autotune_options(args) -> dict:
                 autotune_measure=args.autotune_measure)
 
 
+def fault_mode(args) -> bool:
+    """Whether the flags arm the fault controller."""
+    return (args.fault_rate > 0.0 or args.self_test_period is not None
+            or args.radiation != "off")
+
+
+def check_fault_flags(args, backends) -> None:
+    """Usage errors for half-specified fault/radiation flag sets (they
+    would be ignored silently otherwise)."""
+    rad_mode = args.radiation != "off"
+    rad_flags = (args.base_upset_rate is not None
+                 or args.saa_factor is not None
+                 or args.protection != "none"
+                 or args.checkpoint_cadence is not None)
+    if rad_flags and not rad_mode:
+        raise SystemExit("--base-upset-rate/--saa-factor/--protection/"
+                         "--checkpoint-cadence configure the orbital "
+                         "radiation model; pass --radiation orbit to "
+                         "enable it")
+    faulted = fault_mode(args)
+    if faulted and "accel" not in backends:
+        raise SystemExit("--fault-rate/--self-test-period model SEUs in "
+                         "the accel weight arenas; include 'accel' in "
+                         "--backend")
+    if faulted and args.recovery == "demote" and len(backends) < 2:
+        raise SystemExit("--recovery demote quarantines the primary "
+                         "backend; register a fallback (e.g. accel,cpu)")
+    if (not faulted and (args.fault_seed != 0
+                         or args.recovery != "repack")):
+        raise SystemExit("--fault-seed/--recovery configure fault "
+                         "injection; pass --fault-rate and/or "
+                         "--self-test-period to enable it")
+
+
 def build_scheduler(args) -> tuple:
     """Parse the model/backend lists, build and calibrate one engine per
     model, register each with the scheduler, and make the arrival trace.
@@ -93,6 +144,7 @@ def build_scheduler(args) -> tuple:
         raise SystemExit(f"unknown backend(s) {bad}; choose from "
                          f"{', '.join(BACKENDS)}")
     ladder = capped_ladder(args.batch)
+    check_fault_flags(args, backends)
 
     envelope = None
     if args.power_budget is not None or args.peak_w is not None:
@@ -137,14 +189,86 @@ def build_scheduler(args) -> tuple:
     return sched, trace, engines
 
 
+def arm_faults(args, sched, trace):
+    """The fault controller the flags ask for, attached to ``sched`` and
+    armed on every registered model with its first request as the canary
+    (None when no fault flag is set). Under ``--radiation orbit`` the
+    upset schedule is sampled over the trace's span plus 1 s."""
+    if not fault_mode(args):
+        return None
+    horizon = max((t for t, _, _ in trace), default=0.0) + 1.0
+    upsets: tuple = ()
+    self_test = args.self_test_period
+    if args.radiation != "off":
+        renv = radiation_mod.RadiationEnvironment(
+            base_rate=(2.0 if args.base_upset_rate is None
+                       else args.base_upset_rate),
+            saa_factor=(40.0 if args.saa_factor is None
+                        else args.saa_factor))
+        upsets = renv.sample_upsets(args.fault_seed, horizon)
+        if self_test is None:
+            self_test = 0.05        # canary detection for 'none' mode
+        print(f"[radiation] orbit model: base={renv.base_rate:g}/s  "
+              f"SAA x{renv.saa_factor:g} over "
+              f"{renv.saa_window[0]:.2f}-{renv.saa_window[1]:.2f} s  "
+              f"-> {len(upsets)} upset(s) sampled over {horizon:.2f} s"
+              f"  protection={args.protection}")
+        if args.checkpoint_cadence is not None:
+            # price one ledger checkpoint at the modeled save cost (a
+            # state_dict .npz is small; dominated by the host write)
+            plan = radiation_mod.optimize_cadence(
+                renv, horizon_s=horizon, checkpoint_cost_s=1e-3)
+            print(f"[radiation] checkpoint cadence: T*="
+                  f"{plan.cadence_s*1e3:.2f} ms "
+                  f"({plan.n_checkpoints} checkpoints, expected "
+                  f"replay+overhead {plan.expected_cost_s*1e3:.2f} ms "
+                  f"over the horizon)")
+    controller = faults_mod.FaultController(faults_mod.FaultConfig(
+        seed=args.fault_seed, fault_rate=args.fault_rate,
+        horizon_s=horizon if args.fault_rate > 0 else 0.0,
+        self_test_period=self_test,
+        recovery=args.recovery, upsets=upsets,
+        protection=args.protection))
+    sched.attach_faults(controller)
+    first = {}
+    for _, name, r in trace:
+        first.setdefault(name, r)
+    for name in sched.models:
+        controller.arm(sched, name, [first[name]])
+    print(f"[faults] armed {len(sched.models)} model(s): rate="
+          f"{args.fault_rate}/s  self-test period="
+          f"{self_test} s  recovery={args.recovery}")
+    return controller
+
+
 def serve_space(args) -> int:
     sched, trace, _ = build_scheduler(args)
+    controller = arm_faults(args, sched, trace)
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        # the watchdog-reboot path: a fresh process re-registers the same
+        # models (pristine weights), then resumes the accepted-request
+        # ledger from the checkpoint
+        sched.load_state_dict(faults_mod.load_checkpoint(args.checkpoint))
+        done = {c.rid for c in sched.completions}
+        print(f"[checkpoint] restored {args.checkpoint}: "
+              f"{len(done)} completed, {sched.pending()} queued")
+        trace = []                 # the checkpoint owns the accepted queue
     t0 = time.perf_counter()
     end = sched.serve_trace(trace)
     wall = time.perf_counter() - t0
     print(f"[serve] {len(trace)} requests over {len(sched.models)} model(s)  "
           f"virtual={end:.3f} s  wall={wall:.3f} s")
     print(sched.summary())
+    if controller is not None:
+        rep = controller.report()
+        print(f"[faults] injected={rep['n_injected']}  detected="
+              f"{rep['n_detected']}  recovered={rep['n_recovered']}  "
+              f"self-tests={rep['n_self_tests']}  overhead="
+              f"{rep['overhead_energy_j']*1e3:.3f} mJ  max detection "
+              f"latency={rep['max_detection_latency_s']*1e3:.2f} ms")
+    if args.checkpoint:
+        faults_mod.save_checkpoint(args.checkpoint, sched.state_dict())
+        print(f"[checkpoint] saved {args.checkpoint}")
     return 0
 
 
@@ -255,6 +379,53 @@ def parser() -> argparse.ArgumentParser:
                          "those that launch different kernels on the card "
                          "(the conv's channel blocking); with --device cpu "
                          "no pick differs and nothing is timed")
+    # degraded-mode fault injection + checkpointing (space mode)
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="SEU injection rate in faults per virtual "
+                         "second (Poisson, seeded); flips bits in the "
+                         "accel weight arenas")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the fault schedule and flip targets")
+    ap.add_argument("--self-test-period", type=float, default=None,
+                    metavar="S",
+                    help="run an in-band golden-canary self-test per "
+                         "model every S virtual seconds (low-priority "
+                         "scheduler work; detects silent corruption)")
+    ap.add_argument("--recovery", default="repack",
+                    choices=["repack", "demote"],
+                    help="on canary mismatch: re-pack arenas from "
+                         "pristine host weights, or quarantine the "
+                         "primary backend (dispatch falls back) until a "
+                         "delayed repair")
+    # orbit-aware radiation environment (space mode)
+    ap.add_argument("--radiation", default="off", choices=["off", "orbit"],
+                    help="orbit-aware upset model: sample a typed "
+                         "single/MBU/control upset schedule from the "
+                         "eclipse-phase + SAA rate trace (seeded by "
+                         "--fault-seed) instead of / on top of the flat "
+                         "--fault-rate Poisson storm")
+    ap.add_argument("--base-upset-rate", type=float, default=None,
+                    metavar="R",
+                    help="GCR background upset rate in upsets per virtual "
+                         "second (default 2.0)")
+    ap.add_argument("--saa-factor", type=float, default=None, metavar="X",
+                    help="South Atlantic Anomaly rate multiplier over the "
+                         "orbit-relative SAA window (default 40)")
+    ap.add_argument("--protection", default="none",
+                    choices=["none", "ecc", "tmr"],
+                    help="arena protection mode: canary-only detection, "
+                         "SEC ECC per byte-interleaved domain (+12.5%% "
+                         "footprint + scrub), or TMR (3x footprint, "
+                         "upsets voted away)")
+    ap.add_argument("--checkpoint-cadence", default=None, metavar="auto",
+                    help="print the expected-replay-loss-optimal ledger "
+                         "checkpoint cadence for the radiation "
+                         "environment (pass 'auto')")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="scheduler-ledger checkpoint (.npz): restored "
+                         "at startup if present (the watchdog-reboot "
+                         "path — zero accepted requests lost), saved at "
+                         "exit")
     return ap
 
 

@@ -955,3 +955,77 @@ def test_measured_refinement_times_distinct_launches_on_the_card(
     n = tuner.stats["measured"]
     dec = tuner._search("int8_dense", (16, 32769, 92), hw, True, None)
     assert dec.source == "model" and tuner.stats["measured"] == n
+
+
+# ---------------------------------------------------------------------------
+# the degraded-mode stack on the card (core/faults.py)
+# ---------------------------------------------------------------------------
+
+
+def _canaries(card, cpu_engine, reqs):
+    """A canary of the same request on each engine's accel pipeline."""
+    from repro_torch.core import faults
+    from repro_torch.core.pipeline import ServingPipeline
+    return [faults.GoldenCanary("cnet_plus_scalar",
+                                ServingPipeline(e, backend="accel",
+                                                batch_size=1), reqs)
+            for e in (card, cpu_engine)]
+
+
+def test_card_flip_gives_the_cpu_engines_flipped_output(cuda_device,
+                                                         cpu_engine):
+    """A pinned flip in fc1 reaches the split-K kernel through the live
+    arena: the card's canary output equals the CPU engine's under the
+    same flip, bit for bit, and differs from the pristine one; a repack
+    restores the pristine digest on both."""
+    from repro_torch.core import faults
+    card = Engine(cpu_engine.graph, cpu_engine.params, device=cuda_device)
+    card.share_calibration(cpu_engine)
+    on_card, on_cpu = _canaries(card, cpu_engine, _requests(1, seed=31))
+    assert on_card.digest == on_cpu.digest
+    plans = [e.planned("accel") for e in (card, cpu_engine)]
+    k, n = plans[1].host_weights["fc1_act"].shape   # fc1 + its ReLU
+    for plan in plans:               # the scalar's row, the sign bit
+        got = faults.SEUInjector(0).flip(plan, node="fc1_act",
+                                         byte=(k - 1) * n + 3, bit=7)
+        assert got == ("fc1_act", (k - 1) * n + 3, 7)
+    assert plans[0].weight_arena["fc1_act"].device.type == "cuda"
+    outs = [c.run()["head"] for c in (on_card, on_cpu)]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert not np.array_equal(outs[0], on_card.reference["head"])
+    assert not on_card.check()[0] and not on_cpu.check()[0]
+    for plan in plans:
+        plan.repack_weights()
+    assert on_card.check()[0] and on_cpu.check()[0]
+
+
+def test_card_canary_is_deterministic(cuda_device, cpu_engine):
+    """20 canary checks with no flip all pass: every kernel on the accel
+    path gives the same bits run to run."""
+    card = Engine(cpu_engine.graph, cpu_engine.params, device=cuda_device)
+    card.share_calibration(cpu_engine)
+    canary, _ = _canaries(card, cpu_engine, _requests(1, seed=32))
+    kops.reset_launch_counts()
+    assert all(canary.check()[0] for _ in range(20))
+    counts = kops.launch_counts()
+    assert (counts["conv2d_int8"], counts["int8_matmul"]) == (60, 40)
+
+
+def test_card_staging_flip_is_transient(cuda_device, cpu_engine):
+    """A flip in a pinned staging slot is overwritten by the next stage()
+    before any dispatch reads it."""
+    from repro_torch.core import faults
+    from repro_torch.core.pipeline import ServingPipeline
+    card = Engine(cpu_engine.graph, cpu_engine.params, device=cuda_device)
+    card.share_calibration(cpu_engine)
+    pipe = ServingPipeline(card, backend="accel", batch_size=4)
+    assert pipe.arena._bufs[0]["image"].is_pinned()
+    reqs = _requests(4, seed=33)
+    ref = pipe.execute_batch(reqs)
+    inj = faults.SEUInjector(0)
+    for _ in range(8):
+        inj.flip_staging(pipe.arena, slot=0)
+    assert inj.n_flips == 8
+    again = pipe.execute_batch(reqs)
+    for k in ref.outputs:
+        np.testing.assert_array_equal(again.outputs[k], ref.outputs[k])

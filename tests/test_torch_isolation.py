@@ -3,11 +3,13 @@
 * ``import repro_torch`` (every submodule) never loads ``jax``;
 * nothing in ``src/repro_torch`` or ``chip_smoke.py`` imports the JAX
   package ``repro``;
-* the five numpy-only modules the port copies equal their originals after
+* the six numpy-only modules the port copies equal their originals after
   the ``repro.`` -> ``repro_torch.`` rewrite, so any drift is deliberate;
 * entry points need a card unless the caller asks for the CPU, and
   ``chip_smoke.py`` fails (printing no verdict) without one;
-* the launcher accepts only the flags the ported slices support.
+* the launcher accepts only the flags the ported slices support, and
+  serves fault storms, orbit radiation storms (ECC/TMR protection) and
+  checkpoint/restore on the CPU.
 """
 import ast
 import pkgutil
@@ -27,7 +29,8 @@ from repro_torch.models import cnet_plus_scalar as tcnet
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-COPIED = ("opgraph", "inspector", "passes", "memory", "energy")
+COPIED = ("opgraph", "inspector", "passes", "memory", "energy",
+          "radiation")
 
 
 def _port_modules():
@@ -108,9 +111,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fault-rate", "1"], ["--radiation", "orbit"], ["--protection", "tmr"],
-    ["--checkpoint", "x.npz"], ["--lm-legacy"], ["--trace-demo"],
-    ["--arch", "tinyllama-1.1b"], ["--kv8"], ["--w8"]])
+    ["--lm-legacy"], ["--trace-demo"], ["--arch", "tinyllama-1.1b"],
+    ["--kv8"], ["--w8"]])
 def test_launcher_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve.parser().parse_args(flag)
@@ -143,3 +145,58 @@ def test_launcher_serves_the_slice_on_the_cpu(capsys):
                        "2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "3/3 served" in out and "backends[accel:" in out
+
+
+FAULT_CMD = ["--mode", "space", "--model", "logistic_net", "--backend",
+             "accel,cpu", "--device", "cpu", "--clock", "modeled",
+             "--requests", "24", "--batch", "4", "--rate", "400"]
+
+
+def _fault_line(out):
+    (line,) = [ln for ln in out.splitlines()
+               if ln.startswith("[faults] injected=")]
+    return {k: v for k, v in (f.split("=") for f in line.split()
+                              if "=" in f)}
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--fault-rate", "60", "--self-test-period", "0.01"], "all"),
+    (["--fault-rate", "60", "--self-test-period", "0.01", "--recovery",
+      "demote", "--fault-seed", "2"], "all"),
+    (["--radiation", "orbit", "--base-upset-rate", "100", "--fault-seed",
+      "1"], "all"),
+    (["--radiation", "orbit", "--base-upset-rate", "100", "--fault-seed",
+      "1", "--protection", "ecc"], "all"),
+    (["--radiation", "orbit", "--base-upset-rate", "100", "--fault-seed",
+      "1", "--protection", "tmr", "--checkpoint-cadence", "auto"], "all")],
+    ids=["poisson", "demote", "orbit", "orbit-ecc", "orbit-tmr"])
+def test_launcher_serves_fault_storms_on_the_cpu(flags, want, capsys):
+    """The fault and radiation flags through the launcher at full width
+    on the CPU plain versions: upsets land, every one is detected and
+    recovered, and every request is served."""
+    assert serve.main(FAULT_CMD + flags) == 0
+    out = capsys.readouterr().out
+    assert "24/24 served" in out and "[faults] armed 1 model(s)" in out
+    rep = _fault_line(out)
+    assert int(rep["injected"]) >= 1
+    assert rep["detected"] == rep["recovered"] == rep["injected"]
+    if "--radiation" in flags:
+        assert "[radiation] orbit model: base=100/s" in out
+    if "--checkpoint-cadence" in flags:
+        assert "[radiation] checkpoint cadence: T*=" in out
+    if "demote" in flags:
+        assert "cpu:" in out.split("backends[")[1]
+
+
+def test_launcher_checkpoint_saved_then_restored(tmp_path, capsys):
+    """--checkpoint saves the ledger after serving; a second run (the
+    reboot) restores it before serving and has nothing left to serve."""
+    path = str(tmp_path / "ledger.npz")
+    cmd = FAULT_CMD + ["--self-test-period", "0.02", "--checkpoint", path]
+    assert serve.main(cmd) == 0
+    out = capsys.readouterr().out
+    assert f"[checkpoint] saved {path}" in out and "restored" not in out
+    assert serve.main(cmd) == 0
+    out = capsys.readouterr().out
+    assert f"[checkpoint] restored {path}: 24 completed, 0 queued" in out
+    assert "[serve] 0 requests" in out and f"[checkpoint] saved {path}" in out

@@ -87,6 +87,73 @@ def twin_engines(n_calib=4, seed=1, widths=NARROW, carry=True, **kw):
     return je, te, samples
 
 
+def fault_twins(names, **kw):
+    """The reference fault tests' engines and their port twins:
+    ``{name: (jax_model, jax_engine, port_engine)}``, params drawn on the
+    JAX side (key 0), the reference calibrated on its 2-sample set
+    (keys 0 and 1, as numpy) and the calibration carried to the CPU port
+    engine, so both plans hold the same int8 weight arenas. ``kw`` goes
+    to both engines."""
+    from repro.models import SPACE_MODELS as j_models
+    from repro_torch.models import SPACE_MODELS as t_models
+    out = {}
+    for name in names:
+        m = j_models[name]
+        jp = m.init_params(jax.random.PRNGKey(0))
+        je = JEngine(m.build_graph(), jp, **kw)
+        je.calibrate([{k: np.asarray(v) for k, v in
+                       m.synthetic_input(jax.random.PRNGKey(i)).items()}
+                      for i in range(2)])
+        te = TEngine(t_models[name].build_graph(),
+                     params_from_numpy(to_numpy_params(jp), "cpu"),
+                     device="cpu", **kw)
+        te.load_calibration(calibration_from_numpy(je._calib, je._ptq_err,
+                                                   "cpu"))
+        out[name] = (m, je, te)
+    return out
+
+
+def storm(side, engines, names, n, upsets=(), stop_at=None, serve=True,
+          backends=("accel", "cpu"), ladder=(1, 4), **cfg):
+    """One modeled-clock fault storm as the reference fault tests drive
+    it, on the reference (``side="jax"``) or the port (``"torch"``): the
+    models registered on ``backends`` over ``ladder`` with a warm-up
+    request, ``n`` requests each on a bursty trace, a controller over
+    ``FaultConfig(**cfg)`` with ``upsets`` given as ``UpsetEvent``
+    argument tuples, armed on each model's canary request. Returns
+    (scheduler, controller, trace)."""
+    from repro.core import faults as jfaults
+    from repro.core import radiation as jrad
+    from repro.core.scheduler import ContinuousBatchingScheduler as JSched
+    from repro.core.scheduler import bursty_arrivals
+    from repro.models import synthetic_requests
+    from repro_torch.core import faults as tfaults
+    from repro_torch.core import radiation as trad
+    from repro_torch.core.scheduler import ContinuousBatchingScheduler
+    sched_cls, fmod, rmod = {
+        "jax": (JSched, jfaults, jrad),
+        "torch": (ContinuousBatchingScheduler, tfaults, trad)}[side]
+    sched = sched_cls(clock="modeled")
+    trace = []
+    for mi, name in enumerate(names):
+        m, je, te = engines[name]
+        reqs = synthetic_requests(m, n, seed=5 + mi)
+        sched.register(name, je if side == "jax" else te, backend=backends,
+                       ladder=ladder, warmup_sample=reqs[0])
+        trace += [(t, name, r) for t, r in
+                  zip(bursty_arrivals(n, burst_size=4, gap_s=0.01,
+                                      seed=20 + mi), reqs)]
+    ctl = fmod.FaultController(fmod.FaultConfig(
+        upsets=tuple(rmod.UpsetEvent(*u) for u in upsets), **cfg))
+    sched.attach_faults(ctl)
+    for mi, name in enumerate(names):
+        ctl.arm(sched, name, synthetic_requests(engines[name][0], 1,
+                                                seed=5 + mi))
+    if serve:
+        sched.serve_trace(trace, stop_at=stop_at)
+    return sched, ctl, trace
+
+
 # ---------------------------------------------------------------------------
 # checks of the helpers
 # ---------------------------------------------------------------------------
