@@ -45,7 +45,27 @@ functions:
   short burst at injection and scrubbing a wide one, ``tmr`` masking
   every arena upset; (i) the card's wall time of a canary check and of a
   full-arena repack (beside the ZCU104 model's price), and a canary
-  dispatch's device time by the profiler.
+  dispatch's device time by the profiler;
+* the torch.fx front-end (``trace_path``): the cloud-mask demo, a model
+  that exists only as a PyTorch function, traced and served on the card
+  through ``run_demo(autotune=True, backends=("accel", "flex"))`` (32
+  requests, ladder to 8) with the launch counts its tuned plan gives
+  (conv grids from the packed layouts), its outputs held to the port's
+  CPU engine (cloud_prob within the reference's accel bound 0.02, flags
+  equal away from the threshold; its fp32 grouped convs feed int8
+  layers), its int8 prefix bit-exact, one B=8 dispatch profiled; then
+  each of the six networks traced from its ``torch_forward`` twin and
+  served on the card bit-identical to its hand-built graph;
+* QAT (``qat_path``): the QAT example's distillation steps on the card
+  (logistic_net 20 x 8 updates, the VAE 3 x 4 at full width, the VAE's
+  gradient through the sampler kernel), each against the same step on
+  the CPU port from the same state: each loss and every VAE gradient
+  within 1e-3 relative (the loss squares a residual ~1e-3 of the
+  outputs), then the fine-tuned weights served on ``accel`` bit-exact to
+  the CPU engine;
+* the launcher's ``--trace-demo`` (16 requests) and the example twins:
+  ``quickstart --trace`` on vae_encoder, and ``eclipse_orbit`` whose
+  modeled-clock ledger equals its CPU run's.
 
 Besides the kernels those paths run, the fp32 ``conv2d`` (on no served
 path, as in the reference) is held against its plain version and timed
@@ -139,7 +159,9 @@ SAMPLE_OPS = 171
 # the weight matrices calibration quantizes ([K, N], one quantize_apply
 # launch each): CNet's five, the LM block's eleven at zamba2-1.2b widths
 # (models/lm.py: build_graph, ZAMBA2_1_2B), then the other five networks'
-# (the VAE's seven; ESPERTA's six [3, 1] alike, one timed; the MMS nets')
+# (the VAE's seven; ESPERTA's six [3, 1] alike, one timed; the MMS nets'),
+# then the cloud-mask demo's seven (its depthwise convs are quantized at
+# calibration too, though they run fp32 on flex)
 QUANTIZE_WEIGHTS = (
     ("cnet", "conv0", 18, 48), ("cnet", "conv1", 432, 48),
     ("cnet", "conv2", 432, 32), ("cnet", "fc1", 32769, 92),
@@ -157,9 +179,40 @@ QUANTIZE_WEIGHTS = (
     ("esperta", "logit0", 3, 1),
     ("mms", "logistic head", 2048, 4), ("mms", "reduced fc1", 1024, 43),
     ("mms", "reduced head", 43, 4), ("mms", "baseline fc1", 12288, 73),
-    ("mms", "baseline head", 73, 4))
+    ("mms", "baseline head", 73, 4),
+    ("demo", "stem", 36, 16), ("demo", "dw1", 9, 16), ("demo", "pw1", 16, 32),
+    ("demo", "dw2", 9, 32), ("demo", "pw2", 32, 64),
+    ("demo", "fc1", 2304, 32), ("demo", "score", 32, 1))
 # the degraded-mode path (fault_path): CNet and the VAE armed on
 # accel,flex; each canary is one B=1 accel dispatch (the plans' launches)
+# the front-end slice: the cloud-mask demo traced and served autotuned on
+# accel+flex (32 requests, ladder to 8), held to the CPU engine: its int8
+# layers are bit-exact (conv_phase, matmul_phase hold each at B=8) and
+# its fp32 grouped convs run on cuDNN here and oneDNN there, so cloud_prob
+# is held to the sigmoid's last-ulp rule, 1e-4 relative and 1e-6
+# absolute (as tests/test_torch_gpu.py), and cloud_flag equal wherever
+# the probability lies farther than 1e-4 from the threshold
+DEMO_REQUESTS = 32
+DEMO_BATCH = 8
+DEMO_RTOL = 1e-4
+DEMO_ATOL = 1e-6
+TRACE_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply")
+# QAT on the card: (model, steps, samples a step); each update's two
+# forwards (the fp32 teacher's, the fake-quantized student's) and their
+# residual against the CPU port's from the same state, to 1e-5 of the
+# output scale (as tests/test_torch_qat.py holds the port to the
+# reference); the loss and the VAE's gradients to 1e-3 relative: the loss
+# squares a residual ~1e-3 of the outputs, so the fp32 libraries' last-ulp
+# differences reach it ~1e3 times larger (the measured worst is printed
+# beside 1e-4)
+QAT_RUNS = (("logistic_net", 20, 8), ("vae_encoder", 3, 4))
+QAT_FORWARD_RTOL = 1e-5
+QAT_RTOL = 1e-3
+QAT_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply",
+               "sample_normal")
+ORBIT_REQUESTS = 48
+EXAMPLE_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply",
+                   "sample_normal")
 FAULT_MODELS = ("cnet_plus_scalar", "vae_encoder")
 FAULT_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply",
                  "sample_normal")
@@ -373,8 +426,9 @@ def _print_case(c):
        "(CNet fc1 and head at B=16; the LM's prefill projections at B=4 x "
        "2048 positions, decode head and down_proj at 4 lanes; ESPERTA's "
        "six K = 3, N = 1 sigmoid layers (one shape); the MMS nets' and the "
-       "VAE's dense layers at B=16; prepacked: fc1 and head in their tuned "
-       "layouts, the LM head at one prompt)")
+       "VAE's dense layers at B=16; the cloud-mask demo's fc1 and score at "
+       "B=8; prepacked: fc1 and head in their tuned layouts, the LM head "
+       "at one prompt)")
 def matmul_phase(torch, gen, flush, only=None):
     """Each shape on the kernel its route picks (``only``: the shapes of
     one route). Split-K shapes also print their device time by the
@@ -408,6 +462,10 @@ def matmul_phase(torch, gen, flush, only=None):
             (BATCH, 12288, 73, "relu", 0.0191, None),
             (BATCH, 73, 4, None, None, None),
             (BATCH, 4608, 6, None, None, None),
+            # the demo's fc1 (int8 in from the pool, relu, requantized for
+            # score) and score (the fused sigmoid)
+            (DEMO_BATCH, 2304, 32, "relu", 0.00519, None),
+            (DEMO_BATCH, 32, 1, "sigmoid", None, None),
             (BATCH, 32769, 92, "relu", 0.0123456789, (1024, 96)),
             (BATCH, 92, 1, None, None, (96, 8)),
             (2048, 2048, 32000, None, None, (1024, 256))):
@@ -585,13 +643,13 @@ def _fmt(v):
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def _smem(cv, cin, bc, requant, stride=1):
-    """The int8 conv block's shared memory (an older checkout's size
-    query takes no output type)."""
+def _smem(cv, cin, bc, requant, stride=1, k=3):
+    """The int8 conv block's shared memory for a ``k`` x ``k`` filter (an
+    older checkout's size query takes no output type)."""
     try:
-        return cv.smem_bytes(cin, bc, 3, 3, stride, requant)
+        return cv.smem_bytes(cin, bc, k, k, stride, requant)
     except TypeError:
-        return cv.smem_bytes(cin, bc, 3, 3, stride)
+        return cv.smem_bytes(cin, bc, k, k, stride)
 
 
 @phase("int8_matmul route rule: device time of both kernels at small M "
@@ -640,28 +698,39 @@ def route_phase(torch, gen, flush):
 
 
 @phase("conv2d_int8 vs plain (CNet's conv0/1/2 and the VAE's five "
-       "stride-2 convs, at B=16)")
+       "stride-2 convs at B=16; the cloud-mask demo's stem and its two "
+       "pointwise 1x1 convs, K = 16 and 32, at B=8)")
 def conv_phase(torch, gen, flush):
     from repro_torch.kernels import conv2d as cv
     dev = "cuda"
     cases = []
-    # (H, W, Cin, Cout, stride, requant): CNet's three, then the VAE's
-    # five (int8 in, relu, requantized for the next; the last feeds mu and
-    # logvar through flatten)
-    for h, w_, cin, cout, stride, rq in (
-            (256, 256, 2, 48, 1, 0.02), (128, 128, 48, 48, 1, 0.0163),
-            (64, 64, 48, 32, 1, None),
-            (128, 256, 3, 8, 2, 0.0241), (64, 128, 8, 32, 2, 0.0286),
-            (32, 64, 32, 96, 2, 0.0228), (16, 32, 96, 144, 2, 0.0172),
-            (8, 16, 144, 144, 2, 0.011)):
-        x = torch.randint(-127, 128, (BATCH, h, w_, cin), generator=gen,
+    # (B, H, W, Cin, Cout, filter k, stride, requant): CNet's three, then
+    # the VAE's five (int8 in, relu, requantized for the next; the last
+    # feeds mu and logvar through flatten), then the demo's accel convs as
+    # its plan folds them (the stem, K = 36; pw1 and pw2, VALID 1x1 with
+    # K = 16, below one m16n8k32 step, and K = 32, one step; pw2
+    # requantized for the pool ahead of fc1)
+    for bsz, h, w_, cin, cout, k, stride, rq in (
+            (BATCH, 256, 256, 2, 48, 3, 1, 0.02),
+            (BATCH, 128, 128, 48, 48, 3, 1, 0.0163),
+            (BATCH, 64, 64, 48, 32, 3, 1, None),
+            (BATCH, 128, 256, 3, 8, 3, 2, 0.0241),
+            (BATCH, 64, 128, 8, 32, 3, 2, 0.0286),
+            (BATCH, 32, 64, 32, 96, 3, 2, 0.0228),
+            (BATCH, 16, 32, 96, 144, 3, 2, 0.0172),
+            (BATCH, 8, 16, 144, 144, 3, 2, 0.011),
+            (DEMO_BATCH, 48, 48, 4, 16, 3, 2, None),
+            (DEMO_BATCH, 24, 24, 16, 32, 1, 1, None),
+            (DEMO_BATCH, 12, 12, 32, 64, 1, 1, 0.0137)):
+        x = torch.randint(-127, 128, (bsz, h, w_, cin), generator=gen,
                           dtype=torch.int8).to(dev)
-        w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
+        w = torch.randint(-127, 128, (k, k, cin, cout), generator=gen,
                           dtype=torch.int8).to(dev)
         ws = (torch.rand(cout, generator=gen) * 0.01).to(dev)
         b = torch.randn(cout, generator=gen).to(dev)
-        kw = dict(x_scale=0.00876, stride=stride, padding="SAME",
-                  act="relu", requant_scale=rq)
+        kw = dict(x_scale=0.00876, stride=stride,
+                  padding="SAME" if k > 1 else "VALID", act="relu",
+                  requant_scale=rq)
         before = (cv.launches, cv.launches_cout_blocks)
         out = cv.conv2d_int8(x, w, ws, b, **kw)
         torch.cuda.synchronize()
@@ -678,15 +747,16 @@ def conv_phase(torch, gen, flush):
         n_out = out.numel()
         out_bytes = n_out * (1 if rq is not None else 4)
         nbytes = x.numel() + w.numel() + 8 * cout + out_bytes
-        ops = 2.0 * n_out * 9 * cin
+        ops = 2.0 * n_out * k * k * cin
         bms, by = bound_ms(nbytes, ops, PEAK_INT8_OPS_S)
-        cases.append(dict(shape=f"[{BATCH},{h},{w_},{cin}]->{cout} stride "
-                          f"{stride} requant={rq is not None}", err=err,
+        cases.append(dict(shape=f"[{bsz},{h},{w_},{cin}]->{cout} {k}x{k} "
+                          f"stride {stride} requant={rq is not None}",
+                          err=err,
                           ms=t, plain_ms=tp, library_ms=None, bound_ms=bms,
                           bound_by=by, device_ms=td))
         _print_case(cases[-1])
         def smem(c):
-            return _smem(cv, cin, c, rq is not None, stride)
+            return _smem(cv, cin, c, rq is not None, stride, k)
         whole, grid = smem(cout), "whole Cout"
         if whole > 232448:
             bc = cv.fit_channel_block(cout, smem)
@@ -903,7 +973,7 @@ def _us_sum(cases, key):
 
 @phase("quantize_apply vs plain (the weights calibration quantizes: CNet's "
        "five, the LM's eleven at zamba2-1.2b widths, the VAE's seven, "
-       "ESPERTA's [3, 1], the MMS nets' five)")
+       "ESPERTA's [3, 1], the MMS nets' five, the cloud-mask demo's seven)")
 def quantize_phase(torch, gen, flush):
     """Each weight shape: bit-exact to the plain version, the kernel's
     device time by the profiler (HBM-cold matrices) beside its event time,
@@ -1136,14 +1206,14 @@ def ssd_phase(torch, gen, flush):
                           TPU_KERNELS["ssd"], cases)
 
 
-@phase("profile: device time by kernel over served B=16 dispatches")
-def profile_phase(torch, engine, inputs, label="untuned"):
+@phase("profile: device time by kernel over served full-rung dispatches")
+def profile_phase(torch, engine, inputs, label="untuned", batch=BATCH):
     """Where one full-rung dispatch's device time goes (torch.profiler,
     CUDA activity), and the device's idle share of the window."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.pipeline import ServingPipeline
-    pipe = ServingPipeline(engine, "accel", batch_size=BATCH)
-    reqs = inputs[:BATCH]
+    pipe = ServingPipeline(engine, "accel", batch_size=batch)
+    reqs = inputs[:batch]
     pipe.execute_batch(reqs)
     n = 5
     torch.cuda.synchronize()
@@ -1163,7 +1233,7 @@ def profile_phase(torch, engine, inputs, label="untuned"):
     if not rows:
         print("   profiler recorded no device time: not measured")
         return None
-    print(f"   {label}, {n} dispatches: wall {wall * 1e3:.3f} ms "
+    print(f"   {label}, {n} B={batch} dispatches: wall {wall * 1e3:.3f} ms "
           f"({wall / n * 1e3:.3f} ms each), device busy "
           f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f}")
     for dev_us, count, key in rows[:12]:
@@ -1765,6 +1835,349 @@ def lm_tuned_phase(torch, lm):
 # ---------------------------------------------------------------------------
 
 
+def _conv_grids(engine):
+    """(whole-Cout, channel-blocked) int8 conv launches per program run of
+    the engine's accel plan, from its packed layouts as the conv wrapper
+    picks its grid: a packed ``cout_per_block`` that leaves more than one
+    block runs the channel-blocked grid."""
+    plan = engine.planned("accel")
+    whole = blocked = 0
+    for name, qp in plan.qplans.items():
+        if qp.op != "conv2d":
+            continue
+        packed = plan.packed.get(name)
+        bc = packed.cout_per_block if packed is not None else 0
+        cw = int(plan.weight_arena[name].shape[-1]) if bc else 0
+        if bc and -(-cw // bc) * bc != bc:
+            blocked += 1
+        else:
+            whole += 1
+    return whole, blocked
+
+
+def _demo_prefix(params):
+    """The demo's int8 prefix (the stem conv and its relu, from the input
+    on), traced: a chain with no fp32 layer in front of it."""
+    import functools
+    import torch.nn.functional as F
+    from repro_torch.frontend import trace
+    from repro_torch.frontend.demo import INPUT_SHAPE
+    from repro_torch.models.common import conv_same
+
+    def stem(p, batch):
+        return {"stem": F.relu(conv_same(batch["bands"], p["stem"],
+                                         stride=2))}
+    return trace(functools.partial(stem, params), {"bands": INPUT_SHAPE},
+                 name="cloud_mask_stem")
+
+
+@phase("trace path: trace the cloud-mask demo (never hand-built) and serve "
+       "it through run_demo(autotune=True, backends=(accel, flex))")
+def trace_serve_phase(torch, device="cuda"):
+    """The torch.fx front-end's demo on the card: trace -> inspect -> PTQ
+    -> autotune -> serve 32 requests. Launch counts from the tuned plan:
+    its conv qplans per grid and its dense qplans per accel run (two
+    warm-ups a rung, then the dispatches; flex runs launch no int8
+    kernel), a quantize_apply per conv/dense node at calibration."""
+    from repro_torch.frontend import demo
+    from repro_torch.kernels import ops
+    from repro_torch.core.scheduler import capped_ladder
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    facts = demo.run_demo(n_requests=DEMO_REQUESTS, batch_top=DEMO_BATCH,
+                          autotune=True, backends=("accel", "flex"),
+                          verbose=True, device=device)
+    counts = counts_with_routes(ops)
+    wall = time.perf_counter() - t0
+    sched, engine = facts.pop("scheduler"), facts.pop("engine")
+    plan = engine.planned("accel")
+    print("\n".join(plan.autotune_lines()))
+    print(f"   facts {facts}; trace + calibrate + tune + serve "
+          f"{wall:.2f} s")
+    assert facts["n_completed"] == DEMO_REQUESTS, facts
+    assert facts["n_segments"] >= 3 and facts["mac_coverage"] > 0.5, facts
+    runs = (len([d for d in sched.dispatches if d.backend == "accel"])
+            + 2 * len(capped_ladder(DEMO_BATCH)))
+    k = _plan_kernels(engine)
+    whole, blocked = _conv_grids(engine)
+    want = {"quantize_apply": k["quantized"],
+            "int8_matmul": k["dense"] * runs,
+            "int8_matmul:splitk": k["dense"] * runs,
+            "conv2d_int8": whole * runs,
+            "conv2d_int8_cout_blocks": blocked * runs,
+            "sample_normal": 0}
+    print(f"   plan: {k['dense']} int8 dense, {whole} whole-Cout + "
+          f"{blocked} channel-blocked int8 conv a run, {runs} accel runs; "
+          f"PTQ-demoted {k['demoted']}")
+    print(f"   launch counts: {counts}")
+    got = {n: counts[n] for n in want}
+    assert got == want, (got, want)
+    assert k["dense"] and whole + blocked, k
+    inputs = demo.synthetic_requests(DEMO_REQUESTS, seed=11)
+    return sched, engine, counts, inputs
+
+
+@phase("trace path: the demo's served outputs vs the port's CPU engine, "
+       "its int8 prefix bit-exact, and the six networks traced vs "
+       "hand-built bit-identical on the card")
+def trace_reference_phase(torch, sched, card_engine, inputs,
+                          device="cuda"):
+    import functools
+    import numpy as np
+    from repro_torch.core.engine import Engine
+    from repro_torch.frontend import demo, trace
+    from repro_torch.models import SPACE_MODELS as ALL
+    from repro_torch.models import synthetic_requests
+    cpu = cpu_engine_of(card_engine)
+    comps = sorted(sched.completions, key=lambda c: c.rid)
+    worst, flips = 0.0, 0
+    for i in range(0, len(comps), DEMO_BATCH):
+        chunk = comps[i:i + DEMO_BATCH]
+        reqs = [inputs[c.rid] for c in chunk]
+        batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+        want = {k: v.numpy() for k, v in cpu.run_batch(batch,
+                                                       "accel").items()}
+        got = {k: np.stack([c.outputs[k] for c in chunk]) for k in want}
+        assert np.isfinite(got["cloud_prob"]).all()
+        np.testing.assert_allclose(got["cloud_prob"], want["cloud_prob"],
+                                   rtol=DEMO_RTOL, atol=DEMO_ATOL)
+        err = float(np.abs(got["cloud_prob"] - want["cloud_prob"]).max())
+        worst = max(worst, err)
+        off = np.abs(want["cloud_prob"] - demo.CLOUD_THRESHOLD) > DEMO_RTOL
+        assert (got["cloud_flag"][off] == want["cloud_flag"][off]).all()
+        flips += int((got["cloud_flag"] != want["cloud_flag"]).sum())
+    print(f"   {len(comps)} served outputs: cloud_prob max |diff| {worst} "
+          f"(held to rtol {DEMO_RTOL}, atol {DEMO_ATOL}), {flips} flag(s) "
+          f"differ (all within {DEMO_RTOL} of the threshold)")
+    # the int8 prefix: bit-exact card vs CPU
+    params = {n: {k: v.cpu() for k, v in p.items()}
+              for n, p in card_engine.params.items()}
+    stem_name = next(n for n in card_engine.graph.order
+                     if card_engine.graph.nodes[n].op == "conv2d")
+    prefix = _demo_prefix({"stem": params[stem_name]})
+    pc = Engine(prefix.graph, prefix.params, device="cpu")
+    pc.calibrate(inputs[:4])
+    pg = Engine(prefix.graph, prefix.params, device=device)
+    pg.share_calibration(pc)
+    batch = {k: np.stack([r[k] for r in inputs[:DEMO_BATCH]])
+             for k in inputs[0]}
+    exact(torch, pg.run_batch(batch, "accel")["stem"].cpu(),
+          pc.run_batch(batch, "accel")["stem"])
+    print(f"   the int8 prefix ({len(prefix.graph.order) - 1} nodes, "
+          f"B={DEMO_BATCH}) bit-exact card vs CPU")
+    # the six networks traced from their twins vs hand-built, on the card
+    for name, m in ALL.items():
+        g = m.build_graph()
+        p = m.init_params(1)
+        tm = trace(functools.partial(m.torch_forward, p),
+                   dict(g.graph_inputs), name=name + "_traced")
+        assert [g.nodes[n].op for n in g.order] == \
+            [tm.graph.nodes[n].op for n in tm.graph.order], name
+        calib = synthetic_requests(m, 4, seed=0)
+        reqs = synthetic_requests(m, 4, seed=1)
+        batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+        keys = np.random.default_rng(2).integers(0, 2 ** 32, size=(4, 2),
+                                                 dtype=np.uint32)
+        outs = []
+        for gg, pp in ((g, p), (tm.graph, tm.params)):
+            e = Engine(gg, pp, device=device)
+            e.calibrate(calib)
+            outs.append({k: v.cpu() for k, v in
+                         e.run_batch(batch, "accel", rngs=keys).items()})
+        assert set(outs[0]) == set(outs[1]), name
+        for key in outs[0]:
+            exact(torch, outs[1][key], outs[0][key])
+        print(f"   {name}: traced {len(tm.graph.order)} nodes == "
+              f"hand-built; accel outputs {sorted(outs[0])} bit-identical "
+              f"on the card (B=4)")
+
+
+@phase("qat path: the QAT example's distillation on the card vs the CPU "
+       "port (logistic_net 20 steps x 8, the VAE 3 steps x 4, full width), "
+       "then the fine-tuned weights served on accel")
+def qat_phase(torch, device="cuda"):
+    """The example's distillation steps on the card, each against the same
+    step on the CPU port from the same weights (the card's, copied) and
+    sample: the fake-quantized weights are then bit-identical, so what
+    differs is the fp32 forward and backward's summation order. (Two
+    trajectories left to run apart diverge: a weight whose x/scale sits at
+    a .5 boundary moves a whole quantization step.) Each update's teacher
+    and student forwards and their residual to 1e-5 of the output scale;
+    its loss, and every VAE gradient, to 1e-3 relative. The VAE's logvar
+    gradient reaches through the sampler kernel (nonzero, equal to the
+    CPU's). The fine-tuned card weights then serve one B=4 batch on accel,
+    held to the CPU engine on the same weights and calibration: int8
+    outputs bit-exact, the VAE's sample to 2e-6. Launches from the plan:
+    training runs the flex op table and launches only the sampler (once a
+    sampler node a forward; four forwards an update: the two checked and
+    the step's two);
+    the served engine's calibration one quantize_apply a conv/dense node
+    and one fp32 trace a calibration sample, then one accel run."""
+    import numpy as np
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.quantize import qat_quantize_params
+    from repro_torch.examples import qat_finetune as qat
+    from repro_torch.kernels import ops
+    from repro_torch.models import SPACE_MODELS as ALL
+
+    def on_cpu(p):
+        return {n: {k: v.cpu() for k, v in d.items()} for n, d in p.items()}
+
+    def forwards(graph, params, teacher, s):
+        with torch.no_grad():
+            return (qat.forward(graph, teacher, s),
+                    qat.forward(graph, qat_quantize_params(params, graph),
+                                s))
+
+    ops.reset_launch_counts()
+    want = dict.fromkeys(("int8_matmul", "int8_matmul:splitk", "conv2d_int8",
+                          "conv2d_int8_cout_blocks", "quantize_apply",
+                          "sample_normal"), 0)
+    for name, steps, per_step in QAT_RUNS:
+        m = ALL[name]
+        graph = m.build_graph()
+        n_sample = sum(n.op == "sample_normal" for n in graph.nodes.values())
+        outs = qat.float_outputs(graph)
+        params = {n: {k: v.to(device) for k, v in p.items()}
+                  for n, p in m.init_params(0).items()}
+        teacher = {n: dict(p) for n, p in params.items()}
+        t_cpu = on_cpu(teacher)
+        rng = np.random.default_rng(3)
+        worst_fwd = worst_res = worst_loss = worst_grad = 0.0
+        card_s = 0.0
+        n_updates = 0
+        for i in range(steps):
+            for s in qat.sample_batch(m, rng, per_step):
+                state = on_cpu(params)
+                card_f = forwards(graph, params, teacher, s)
+                cpu_f = forwards(graph, state, t_cpu, s)
+                for o in outs:
+                    scale = float(cpu_f[0][o].abs().max())
+                    for got, ref in zip(card_f, cpu_f):
+                        err = float((got[o].cpu() - ref[o]).abs().max())
+                        worst_fwd = max(worst_fwd, err / scale)
+                        assert err <= QAT_FORWARD_RTOL * scale, (name, o, err)
+                    res_card = (card_f[1][o] - card_f[0][o]).cpu()
+                    res_cpu = cpu_f[1][o] - cpu_f[0][o]
+                    assert float(res_cpu.abs().max()) > 0, (name, o)
+                    err = float((res_card - res_cpu).abs().max())
+                    worst_res = max(worst_res, err / scale)
+                    assert err <= QAT_FORWARD_RTOL * scale, (name, o, err)
+                before = ops.launch_counts()
+                t0 = time.perf_counter()
+                params, l_card, g_card = qat.distill_step(
+                    graph, params, teacher, s, 1e-3)
+                torch.cuda.synchronize()
+                card_s += time.perf_counter() - t0
+                step = {k: v - before[k]
+                        for k, v in ops.launch_counts().items()}
+                _, l_cpu, g_cpu = qat.distill_step(graph, state, t_cpu, s,
+                                                   1e-3)
+                n_updates += 1
+                # two forwards (teacher, student), each its samplers; no
+                # int8 kernel in training
+                assert step["sample_normal"] == 2 * n_sample, step
+                assert not any(step[k] for k in step
+                               if k != "sample_normal"), step
+                rel = abs(float(l_card) - float(l_cpu)) / float(l_cpu)
+                worst_loss = max(worst_loss, rel)
+                assert rel <= QAT_RTOL, (name, i, rel)
+                if name == "vae_encoder":
+                    assert float(g_card["logvar"]["w"].abs().max()) > 0
+                    for n in g_cpu:
+                        for k, want_g in g_cpu[n].items():
+                            err = float((g_card[n][k].cpu() - want_g)
+                                        .abs().max())
+                            scale = float(want_g.abs().max())
+                            worst_grad = max(worst_grad, err / scale)
+                            assert err <= QAT_RTOL * scale, (n, k, err)
+        print(f"   {name}: {n_updates} updates ({steps} steps x "
+              f"{per_step}); forwards card vs CPU (same state) worst "
+              f"{worst_fwd:.3e}, residual student - teacher worst "
+              f"{worst_res:.3e} of the output scale (held to "
+              f"{QAT_FORWARD_RTOL}); loss worst relative {worst_loss:.3e} "
+              f"(held to {QAT_RTOL}; 1e-4 "
+              f"{'held' if worst_loss <= 1e-4 else 'missed'}); last loss "
+              f"{float(l_card):.4e}; card wall {card_s / n_updates * 1e3:.2f}"
+              f" ms per update (host clock, synchronised)")
+        if name == "vae_encoder":
+            print(f"   vae_encoder gradients card vs CPU worst relative "
+                  f"{worst_grad:.3e} (held to {QAT_RTOL}; 1e-4 "
+                  f"{'held' if worst_grad <= 1e-4 else 'missed'})")
+        card = Engine(graph, params, device=device)
+        calib = qat.sample_batch(m, np.random.default_rng(99), 4)
+        card.calibrate(calib)
+        cpu = cpu_engine_of(card)
+        batch = {k: np.stack([r[k] for r in calib]) for k in calib[0]}
+        got = {k: v.cpu() for k, v in card.run_batch(batch,
+                                                     "accel").items()}
+        ref = cpu.run_batch(batch, "accel")
+        for k in got:
+            if k == "sample":
+                torch.testing.assert_close(got[k], ref[k], rtol=2e-6,
+                                           atol=1e-6)
+            else:
+                exact(torch, got[k], ref[k])
+        print(f"   {name}: fine-tuned weights served on accel (B=4), "
+              f"{sorted(got)} held to the CPU engine")
+        k = _plan_kernels(card)
+        whole, blocked = _conv_grids(card)
+        want["int8_matmul"] += k["dense"]
+        want["int8_matmul:splitk"] += k["dense"]
+        want["conv2d_int8"] += whole
+        want["conv2d_int8_cout_blocks"] += blocked
+        want["quantize_apply"] += k["quantized"]
+        want["sample_normal"] += (4 * n_sample * n_updates
+                                  + k["sample"] * (1 + len(calib)))
+    counts = counts_with_routes(ops)
+    print(f"   launch counts: {counts}")
+    got = {n: counts[n] for n in want}
+    assert got == want, (got, want)
+    print("   launch counts equal what the plans and the updates derive")
+    return counts
+
+
+@phase("examples: the launcher's --trace-demo, quickstart --trace on "
+       "vae_encoder, and eclipse_orbit on the card with its modeled-clock "
+       "ledger equal to its CPU run")
+def examples_phase(torch, device="cuda"):
+    import contextlib
+    import io
+    from repro_torch.examples import eclipse_orbit, quickstart
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launch_counts()
+    demo_args = ["--trace-demo", "--backend", "accel,flex", "--requests",
+                 "16", "--batch", "8", "--autotune"]
+    if device == "cpu":
+        demo_args += ["--device", "cpu"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert serve.main(demo_args) == 0
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("[trace-demo]")]
+    print(f"   {line[0]}")
+    assert line[0].startswith("[trace-demo] 16/16 served"), line
+    assert quickstart.main(["--model", "vae_encoder", "--trace",
+                            "--device", device]) == 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        card = eclipse_orbit.run_orbit(ORBIT_REQUESTS, device)
+    counts = counts_with_routes(ops)
+    text = buf.getvalue()
+    print("\n".join("   " + ln for ln in text.splitlines()[-9:]))
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = eclipse_orbit.run_orbit(ORBIT_REQUESTS, "cpu")
+    assert card["ok"] and cpu["ok"], (card["ok"], cpu["ok"])
+    assert card["rows"] == cpu["rows"], (card["rows"], cpu["rows"])
+    assert card["end"] == cpu["end"] and card["audit"] == cpu["audit"]
+    print(f"   eclipse_orbit: {card['served']}/{card['n_requests']} served "
+          f"once, per-phase ledger and envelope audit equal to the CPU "
+          f"run's ({len(card['rows'])} phases)")
+    print(f"   launch counts: {counts}")
+    return counts
+
+
 def fault_args(*extra, device=None):
     """The fault path's launcher arguments: CNet and the VAE (published
     widths) on ``accel,flex`` under the modeled clock, so that a storm's
@@ -2200,7 +2613,22 @@ def main() -> int:
         counts = fault_path(torch)
         if counts is not None:
             paths["fault_phase"] = (FAULT_KERNELS, counts)
-        if len(paths) != 5 + len(SPACE_MODELS):
+        served = trace_serve_phase(torch)
+        if served is not None:
+            sched, engine, counts, inputs = served
+            paths["trace_path"] = (TRACE_KERNELS, counts)
+            trace_reference_phase(torch, sched, engine, inputs)
+            profile_phase(torch, engine, inputs, "cloud_mask_cnn tuned",
+                          batch=DEMO_BATCH)
+            del sched, engine, inputs
+            torch.cuda.empty_cache()
+        counts = qat_phase(torch)
+        if counts is not None:
+            paths["qat_path"] = (QAT_KERNELS, counts)
+        counts = examples_phase(torch)
+        if counts is not None:
+            paths["examples"] = (EXAMPLE_KERNELS, counts)
+        if len(paths) != 8 + len(SPACE_MODELS):
             FAILURES.append("a served path failed")
         for path, (names, counts) in paths.items():
             print(f"launches on the {path} path: {counts}")

@@ -53,7 +53,7 @@ from repro_torch.kernels.sample import split_keys
 # ---------------------------------------------------------------------------
 
 
-def _same_pads(sizes, kernel, stride: int, padding: str) -> List[int]:
+def same_pads(sizes, kernel, stride: int, padding: str) -> List[int]:
     """F.pad spec (last spatial dim first) for SAME/VALID: SAME puts the
     odd extra row/column at the end, as XLA does."""
     pads: List[int] = []
@@ -73,9 +73,9 @@ def _conv_b(x, p, a, nd: int):
     w = p["w"].float()                      # HWIO / DHWIO
     k = tuple(w.shape[:nd])
     x = x.float()
-    x = F.pad(x, [0, 0] + _same_pads(x.shape[1:1 + nd], k,
-                                     a.get("stride", 1),
-                                     a.get("padding", "SAME")))
+    x = F.pad(x, [0, 0] + same_pads(x.shape[1:1 + nd], k,
+                                    a.get("stride", 1),
+                                    a.get("padding", "SAME")))
     perm_in = (0, nd + 1) + tuple(range(1, nd + 1))
     perm_w = (nd + 1, nd) + tuple(range(nd))
     conv = F.conv2d if nd == 2 else F.conv3d

@@ -1,9 +1,12 @@
-"""INT8 post-training quantization — the Vitis-AI quantizer analog.
+"""INT8 post-training quantization (+ QAT fake-quant) — the Vitis-AI
+quantizer analog.
 
 PTQ: per-output-channel symmetric weight scales (absmax/127), per-tensor
 activation scales collected by running the calibration set through the
-fp32 graph and recording absmax at every node output. (QAT fake-quant is
-not ported yet.)
+fp32 graph and recording absmax at every node output. QAT:
+straight-through-estimator fake-quant usable inside a
+``torch.autograd`` training loop (the paper notes that PTQ caused
+"noticeable degradation that QAT could mitigate").
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from repro_torch.core.opgraph import Graph
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.epilogue import fma_f32
 from repro_torch.kernels.sample import split
 
 
@@ -128,3 +132,60 @@ def _trace(engine, inputs) -> Dict[str, torch.Tensor]:
                                        node.attrs,
                                        torch.from_numpy(sub.astype(np.int64)))
     return vals
+
+
+# ---------------------------------------------------------------------------
+# QAT (straight-through estimator)
+# ---------------------------------------------------------------------------
+
+# float32 1/127: the reference's QAT step runs compiled, and XLA turns the
+# division of max|w| by the static 127 into this multiplication
+_INV127 = np.float32(1.0) / np.float32(127.0)
+
+
+class FakeQuant(torch.autograd.Function):
+    """``clamp(round(x / scale), -127, 127) * scale`` (round half to even,
+    as ``jnp.round``), with the straight-through gradient: ``g`` where
+    ``|x| <= 127 scale``, zero outside, and none for ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return torch.clamp(torch.round(x / scale), -127, 127) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        inside = (torch.abs(x) <= 127.0 * scale).to(g.dtype)
+        return g * inside, None
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return FakeQuant.apply(x, scale)
+
+
+def qat_scale(w2: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel fake-quant scale of ``w2`` [K, N]: ``max|w| / 127
+    + 1e-12`` as the compiled reference computes it, one fused
+    multiply-add ``fma(max|w|, float32(1/127), 1e-12)``; outside the
+    gradient (a constant of the straight-through estimator)."""
+    absmax = torch.amax(torch.abs(w2.detach()), dim=0)
+    return fma_f32(absmax, torch.full_like(absmax, float(_INV127)),
+                   torch.full_like(absmax, float(np.float32(1e-12))))
+
+
+def qat_quantize_params(params: Dict[str, Dict[str, torch.Tensor]],
+                        graph: Graph) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Fake-quantize all conv2d/dense weights (QAT forward); biases stay
+    fp32."""
+    out = {}
+    for name, p in params.items():
+        node = graph.nodes.get(name)
+        if node is not None and node.op in ("conv2d", "dense") and "w" in p:
+            w = p["w"]
+            w2 = w.reshape(-1, w.shape[-1])
+            wq = fake_quant(w2, qat_scale(w2)[None, :]).reshape(w.shape)
+            out[name] = dict(p, w=wq)
+        else:
+            out[name] = p
+    return out

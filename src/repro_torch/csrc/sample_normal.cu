@@ -62,14 +62,17 @@ __device__ __forceinline__ float erfinv_xla(float x) {
   return __fmul_rn(p, x);
 }
 
-// keys: [B, 2] uint32 words; mu, logvar, out: [B, n] float32. With
+// keys: [B, 2] uint32 words; mu, logvar, out: [B, n] float32. eps_out,
+// when not null, also receives each element's eps (the backward pass of
+// the sample reads it: dlogvar = 0.5 g exp(0.5 logvar) eps). With
 // bits_only the kernel writes each element's raw bits into out instead
 // (mu and logvar unread): the card test holds them to the plain version.
 __global__ void __launch_bounds__(kThreads)
     sample_normal_kernel(const float* __restrict__ mu,
                          const float* __restrict__ logvar,
                          const uint32_t* __restrict__ keys,
-                         float* __restrict__ out, long long total,
+                         float* __restrict__ out,
+                         float* __restrict__ eps_out, long long total,
                          long long n, int bits_only) {
   const long long e = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
@@ -88,16 +91,19 @@ __global__ void __launch_bounds__(kThreads)
   const float u = fmaxf(lo, __fadd_rn(__fmul_rn(f, 2.0f), lo));
   const float sqrt2 = __uint_as_float(0x3FB504F3u);   // float32 sqrt(2)
   const float eps = __fmul_rn(sqrt2, erfinv_xla(u));
+  if (eps_out != nullptr) eps_out[e] = eps;
   const float sd = expf(__fmul_rn(0.5f, logvar[e]));
   out[e] = __fadd_rn(mu[e], __fmul_rn(sd, eps));
 }
 
 }  // namespace
 
-// b samples of n elements each; keys holds b (k0, k1) pairs
+// b samples of n elements each; keys holds b (k0, k1) pairs; eps_out may
+// be null
 extern "C" int sample_normal(const void* mu, const void* logvar,
-                             const void* keys, void* out, int b, long long n,
-                             int bits_only, void* stream) {
+                             const void* keys, void* out, void* eps_out,
+                             int b, long long n, int bits_only,
+                             void* stream) {
   if (b <= 0 || n <= 0) return 0;
   if (n >= (1LL << 32)) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(b) * n;
@@ -106,7 +112,7 @@ extern "C" int sample_normal(const void* mu, const void* logvar,
   sample_normal_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(mu), static_cast<const float*>(logvar),
-      static_cast<const uint32_t*>(keys), static_cast<float*>(out), total, n,
-      bits_only);
+      static_cast<const uint32_t*>(keys), static_cast<float*>(out),
+      static_cast<float*>(eps_out), total, n, bits_only);
   return static_cast<int>(cudaGetLastError());
 }

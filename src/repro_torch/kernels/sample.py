@@ -26,6 +26,15 @@ integer operations a thread: its floor is the launch itself.
 The plain versions compute the same uint32 arithmetic in int64 tensors
 (or numpy uint64 arrays) masked to 32 bits, and the same polynomial.
 Keys are ``[..., 2]`` integer arrays holding uint32 values.
+
+The sample is differentiable in ``mu`` and ``logvar`` (QAT distils
+through it): :class:`SampleNormal` carries it on either device. On the
+card it wraps the launch, and when a gradient is needed the kernel also
+writes the eps it draws; on the CPU its forward is the plain version's
+arithmetic. The backward pass is plain PyTorch, ``dmu = g`` and
+``dlogvar = 0.5 g exp(0.5 logvar) eps`` (what ``jax.grad`` of the
+reference's expression gives; ``z - mu`` would cancel when |mu| >>
+std). The keys get no gradient.
 """
 from __future__ import annotations
 
@@ -54,7 +63,7 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                -0.00367342844, 0.00573950773, -0.0076224613,
                0.00943887047, 1.00167406, 2.83297682)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
                                       ctypes.c_int, ctypes.c_void_p]
 
 
@@ -129,13 +138,17 @@ def _check(mu, logvar, keys):
                          f"{tuple(logvar.shape)}, keys {tuple(keys.shape)}")
 
 
+def _eps_plain(mu: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    eps = normal_plain(keys.to(mu.device), math.prod(mu.shape[1:]))
+    return eps.reshape(mu.shape)
+
+
 def sample_normal_plain(mu: torch.Tensor, logvar: torch.Tensor,
                         keys: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch on ``mu``'s device."""
     _check(mu, logvar, keys)
-    eps = normal_plain(keys.to(mu.device), math.prod(mu.shape[1:]))
     return (mu.float() + torch.exp(0.5 * logvar.float())
-            * eps.reshape(mu.shape))
+            * _eps_plain(mu, keys))
 
 
 def _key_words(keys: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -146,31 +159,58 @@ def _key_words(keys: torch.Tensor, device: torch.device) -> torch.Tensor:
     return k.contiguous().to(device, non_blocking=True)
 
 
-def _launch(mu, logvar, words, out, bits_only: bool) -> None:
+def _launch(mu, logvar, words, out, bits_only: bool, eps=None) -> None:
     global launches
     lib = build.library("sample_normal")
     fn = lib.sample_normal
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     rc = fn(build.ptr(mu), build.ptr(logvar), build.ptr(words),
-            build.ptr(out), out.shape[0], math.prod(out.shape[1:]),
-            int(bits_only), build.stream(out))
+            build.ptr(out), build.ptr(eps), out.shape[0],
+            math.prod(out.shape[1:]), int(bits_only), build.stream(out))
     build.check(lib, rc, "sample_normal")
     launches += 1
+
+
+class SampleNormal(torch.autograd.Function):
+    """``z = mu + exp(0.5 logvar) eps`` with a gradient for ``mu`` and
+    ``logvar``: the kernel forward on the card (the plain arithmetic on
+    the CPU, in ``mu``'s dtype), the backward in plain PyTorch from the
+    eps the forward drew."""
+
+    @staticmethod
+    def forward(ctx, mu, logvar, keys):
+        need_eps = ctx.needs_input_grad[1]
+        if build.on_cpu(mu, logvar):
+            eps = _eps_plain(mu, keys).to(mu.dtype)
+            z = mu + torch.exp(0.5 * logvar) * eps
+        else:
+            mu = mu.float().contiguous()
+            logvar = logvar.float().contiguous()
+            z = torch.empty_like(mu)
+            eps = torch.empty_like(mu) if need_eps else None
+            _launch(mu, logvar, _key_words(keys, mu.device), z, False, eps)
+        if need_eps:
+            ctx.save_for_backward(logvar, eps)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        dlogvar = None
+        if ctx.needs_input_grad[1]:
+            logvar, eps = ctx.saved_tensors
+            # autograd's (and jax.grad's) order through the expression
+            dlogvar = g * eps * torch.exp(0.5 * logvar) * 0.5
+        return (g if ctx.needs_input_grad[0] else None), dlogvar, None
 
 
 def sample_normal(mu: torch.Tensor, logvar: torch.Tensor,
                   keys: torch.Tensor) -> torch.Tensor:
     """``mu``/``logvar`` [B, ...] float32, ``keys`` [B, 2] raw per-sample
     keys (uint32 values, any integer type, on any device) -> [B, ...]
-    float32. The device of ``mu`` chooses the path."""
+    float32, differentiable in ``mu`` and ``logvar``. The device of ``mu``
+    chooses the path."""
     _check(mu, logvar, keys)
-    if build.on_cpu(mu, logvar):
-        return sample_normal_plain(mu, logvar, keys)
-    mu = mu.float().contiguous()
-    logvar = logvar.float().contiguous()
-    out = torch.empty_like(mu)
-    _launch(mu, logvar, _key_words(keys, mu.device), out, False)
-    return out
+    return SampleNormal.apply(mu, logvar, keys)
 
 
 def random_bits_kernel(keys: torch.Tensor, n: int,

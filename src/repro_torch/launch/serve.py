@@ -35,6 +35,12 @@ scheduler ledger from PATH before serving when the file exists (the
 watchdog-reboot path) and saves it after. Use ``--clock modeled`` for a
 storm that replays identically on any device.
 
+``--trace-demo`` (space mode) traces the depthwise-separable cloud-mask
+CNN, a model with no hand-built graph, from its PyTorch function through
+the ``torch.fx`` front-end (``frontend/demo.py``) and drives it trace ->
+inspect -> PTQ -> autotune -> scheduler serve; it honours ``--requests``,
+``--rate``, ``--batch``, ``--backend`` and ``--autotune``.
+
 Runs on the card; ``--device cpu`` runs every kernel's plain PyTorch
 version on the CPU instead.
 
@@ -50,6 +56,8 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --mode space \\
         --model logistic_net --backend accel,cpu --clock modeled \\
         --radiation orbit --protection ecc --checkpoint ledger.npz
+    PYTHONPATH=src python -m repro_torch.launch.serve --trace-demo \
+        --backend accel,flex --requests 32 --batch 8 --autotune
 """
 from __future__ import annotations
 
@@ -82,6 +90,17 @@ KEEP_PREDICATES = {
     # VAE: everything downlinks (it IS the compressed product)
     "vae_encoder": lambda out: True,
 }
+
+
+def parse_backends(spec: str) -> tuple:
+    """``--backend``'s comma list, primary first; a usage error names any
+    unknown entry."""
+    backends = tuple(b.strip() for b in spec.split(",") if b.strip())
+    bad = [b for b in backends if b not in BACKENDS]
+    if bad or not backends:
+        raise SystemExit(f"unknown backend(s) {bad}; choose from "
+                         f"{', '.join(BACKENDS)}")
+    return backends
 
 
 def autotune_options(args) -> dict:
@@ -138,11 +157,7 @@ def build_scheduler(args) -> tuple:
     if unknown or not names:
         raise SystemExit(f"unknown model(s) {unknown}; choose from "
                          f"{', '.join(sorted(SPACE_MODELS))}")
-    backends = tuple(b.strip() for b in args.backend.split(",") if b.strip())
-    bad = [b for b in backends if b not in BACKENDS]
-    if bad or not backends:
-        raise SystemExit(f"unknown backend(s) {bad}; choose from "
-                         f"{', '.join(BACKENDS)}")
+    backends = parse_backends(args.backend)
     ladder = capped_ladder(args.batch)
     check_fault_flags(args, backends)
 
@@ -321,9 +336,30 @@ def serve_lm_compiled(args, cfg=None) -> int:
     return 0 if len(comps) == args.requests else 1
 
 
+def trace_demo(args) -> int:
+    """The torch.fx front-end demo: trace the cloud-mask CNN (never hand
+    built) and serve it end to end; exit code 1 unless every request was
+    served."""
+    from repro_torch.frontend.demo import run_demo
+    facts = run_demo(n_requests=args.requests, rate_hz=args.rate,
+                     batch_top=args.batch, autotune=args.autotune,
+                     backends=parse_backends(args.backend), verbose=True,
+                     device=args.device)
+    print(f"[trace-demo] {facts['n_completed']}/{facts['n_requests']} "
+          f"served, {facts['n_kept']} kept for downlink "
+          f"({facts['mac_coverage']:.1%} of MACs on accel, "
+          f"{facts['n_segments']} segments)")
+    return 0 if facts["n_completed"] == facts["n_requests"] else 1
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="space", choices=["space", "lm"])
+    ap.add_argument("--trace-demo", action="store_true",
+                    help="torch.fx front-end demo: trace the depthwise-"
+                         "separable cloud-mask CNN (never hand-built) and "
+                         "serve it end to end; honours --requests/--rate/"
+                         "--batch/--backend/--autotune")
     ap.add_argument("--model", default="cnet_plus_scalar",
                     help="comma list of space models to co-serve "
                          f"({', '.join(sorted(SPACE_MODELS))})")
@@ -431,6 +467,8 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
+    if args.trace_demo:
+        return trace_demo(args)
     if args.mode == "lm":
         return serve_lm_compiled(args)
     return serve_space(args)

@@ -15,9 +15,12 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core.opgraph import Graph
-from repro_torch.models.common import batch_synthetic, init_graph_params
+from repro_torch.models.common import (batch_synthetic, conv_same,
+                                       init_graph_params, maxpool)
 
 INPUT_SHAPE = (256, 256, 2)
 CHANNELS = (48, 48, 32)
@@ -45,6 +48,22 @@ def build_graph(dpu_compatible: bool = True,
     y = g.add("dense", [x], name="head", features=1)
     g.mark_output(y)
     return g
+
+
+def torch_forward(params: Dict[str, Dict[str, torch.Tensor]],
+                  batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """CNetPlusScalar (the ReLU variant) as a plain batched PyTorch
+    function over the graph's params (HWIO convs, [in, out] dense): the
+    front-end's target. Output keys are the graph's output node names."""
+    x = batch["image"]
+    i = 0
+    while f"conv{i}" in params:
+        x = maxpool(F.relu(conv_same(x, params[f"conv{i}"])))
+        i += 1
+    x = x.reshape(x.shape[0], -1)
+    x = torch.cat([x, batch["background_flux"]], dim=1)
+    x = F.relu(x @ params["fc1"]["w"] + params["fc1"]["b"])
+    return {"head": x @ params["head"]["w"] + params["head"]["b"]}
 
 
 def init_params(seed: int = 0, **widths):

@@ -1,5 +1,6 @@
-"""Shared param init for op-graph models (He/LeCun init per op type) and
-batched synthetic-input stacking.
+"""Shared param init for op-graph models (He/LeCun init per op type),
+batched synthetic-input stacking, and the layers the models' plain
+PyTorch twins (``torch_forward``, the front-end's targets) share.
 
 Parameters and inputs are drawn from numpy generators seeded by the
 caller: the formulas are the reference's, the numbers are numpy's.
@@ -10,8 +11,10 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.opgraph import Graph
+from repro_torch.core.plan import same_pads
 
 
 def batch_synthetic(synthetic_input: Callable, rng: np.random.Generator,
@@ -71,3 +74,37 @@ def init_graph_params(g: Graph, seed: int
                              (2.0 / (kd * kh * kw * cin)) ** 0.5),
                 "b": torch.zeros(cout)}
     return params
+
+
+# -- the twins' layers: channel-last in and out, as the graph's tensors --
+
+
+def _channel_first(x: torch.Tensor) -> torch.Tensor:
+    rank = len(x.shape)
+    return x.permute(0, rank - 1, *range(1, rank - 1))
+
+
+def _channel_last(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, *range(2, len(x.shape)), 1)
+
+
+def conv_same(x: torch.Tensor, p: Dict[str, torch.Tensor], stride: int = 1,
+              groups: int = 1) -> torch.Tensor:
+    """A graph conv2d/conv3d (SAME, bias) on channel-last ``x`` with HWIO /
+    DHWIO weights. The padding is explicit and XLA's: the odd extra row
+    and column at the end, which torch's symmetric ``padding=`` cannot
+    express at stride 2."""
+    w = p["w"]
+    nd = w.ndim - 2
+    pads = same_pads(x.shape[1:1 + nd], w.shape[:nd], stride, "SAME")
+    conv = F.conv2d if nd == 2 else F.conv3d
+    y = conv(F.pad(_channel_first(x), pads),
+             w.permute(nd + 1, nd, *range(nd)), p["b"], stride=stride,
+             groups=groups)
+    return _channel_last(y)
+
+
+def maxpool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """A graph maxpool2d/3d (VALID, stride = window) on channel-last x."""
+    pool = F.max_pool2d if len(x.shape) == 4 else F.max_pool3d
+    return _channel_last(pool(_channel_first(x), k))

@@ -57,6 +57,20 @@ def build_single_graph(m: int = 0) -> Graph:
     return g
 
 
+def torch_forward(params: Dict[str, Dict[str, torch.Tensor]],
+                  batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Multi-ESPERTA as a plain batched PyTorch function (the front-end's
+    target): sigmoid and the thresholded warning per model."""
+    x = batch["features"]
+    out: Dict[str, torch.Tensor] = {}
+    for m in range(N_MODELS):
+        p = params[f"logit{m}"]
+        prob = torch.sigmoid(x @ p["w"] + p["b"])
+        out[f"prob{m}"] = prob
+        out[f"warn{m}"] = (prob > float(THRESHOLDS[m])).float()
+    return out
+
+
 def init_params(seed=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """The published weights; ``seed`` is ignored (nothing is drawn)."""
     del seed

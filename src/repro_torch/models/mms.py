@@ -20,9 +20,11 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.opgraph import Graph
-from repro_torch.models.common import batch_synthetic, init_graph_params
+from repro_torch.models.common import (batch_synthetic, conv_same,
+                                       init_graph_params, maxpool)
 
 INPUT_SHAPE = (32, 16, 32, 1)
 N_CLASSES = 4
@@ -81,6 +83,35 @@ GRAPH_BUILDERS = {
     "reduced_net": build_reduced_graph,
     "baseline_net": build_baseline_graph,
 }
+
+
+# -- plain batched PyTorch twins (the front-end's targets) -----------------
+
+
+def _head(x, params, name: str = "head"):
+    y = x.reshape(x.shape[0], -1) @ params[name]["w"] + params[name]["b"]
+    return {"head": y, "region": torch.argmax(y, dim=1).to(torch.int32)}
+
+
+def torch_forward_logistic(params, batch):
+    return _head(maxpool(batch["dist"]), params)
+
+
+def torch_forward_reduced(params, batch):
+    x = maxpool(batch["dist"])
+    x = maxpool(F.relu(conv_same(x, params["conv0"])))
+    x = x.reshape(x.shape[0], -1)
+    x = F.relu(x @ params["fc1"]["w"] + params["fc1"]["b"])
+    return _head(x, params)
+
+
+def torch_forward_baseline(params, batch):
+    x = batch["dist"]
+    for i in range(2):
+        x = maxpool(F.relu(conv_same(x, params[f"conv{i}"])))
+    x = x.reshape(x.shape[0], -1)
+    x = F.relu(x @ params["fc1"]["w"] + params["fc1"]["b"])
+    return _head(x, params)
 
 
 def init_params(name: str, seed: int = 0

@@ -17,9 +17,13 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core.opgraph import Graph
-from repro_torch.models.common import batch_synthetic, init_graph_params
+from repro_torch.frontend.ops import sample_normal
+from repro_torch.models.common import (batch_synthetic, conv_same,
+                                       init_graph_params)
 
 INPUT_SHAPE = (128, 256, 3)
 LATENT = 6
@@ -39,6 +43,21 @@ def build_graph(input_shape: Tuple[int, int, int] = INPUT_SHAPE) -> Graph:
     z = g.add("sample_normal", [mu, logvar], name="sample")
     g.mark_output(mu, logvar, z)
     return g
+
+
+def torch_forward(params: Dict[str, Dict[str, torch.Tensor]],
+                  batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The encoder as a plain batched PyTorch function over the graph's
+    params: the front-end's target. Output keys are the graph's output
+    node names."""
+    x = batch["image"]
+    for i in range(len(CHANNELS)):
+        x = F.relu(conv_same(x, params[f"conv{i}"], stride=2))
+    x = x.reshape(x.shape[0], -1)
+    mu = x @ params["mu"]["w"] + params["mu"]["b"]
+    logvar = x @ params["logvar"]["w"] + params["logvar"]["b"]
+    return {"mu": mu, "logvar": logvar,
+            "sample": sample_normal(mu, logvar)}
 
 
 def init_params(seed: int = 0,

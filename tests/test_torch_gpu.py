@@ -1029,3 +1029,87 @@ def test_card_staging_flip_is_transient(cuda_device, cpu_engine):
     again = pipe.execute_batch(reqs)
     for k in ref.outputs:
         np.testing.assert_array_equal(again.outputs[k], ref.outputs[k])
+
+
+# ---------------------------------------------------------------------------
+# the sampler's gradient, the traced demo and a QAT step on the card
+# ---------------------------------------------------------------------------
+
+
+def test_sample_normal_gradient_matches_plain(cuda_device):
+    """The kernel's autograd path (the kernel writes eps beside z; the
+    backward is plain PyTorch) gives the CPU plain version's mu and logvar
+    gradients under the same keys, within 2e-6 relative (atol 1e-6), with
+    |mu| >> std where z - mu would cancel; a forward without a gradient
+    writes no eps."""
+    rng = np.random.default_rng(61)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, size=(16, 2),
+                                         dtype=np.uint32).astype(np.int64))
+    mu0 = torch.from_numpy(rng.standard_normal((16, 6)).astype(np.float32)
+                           * 50.0)
+    lv0 = torch.from_numpy(rng.standard_normal((16, 6)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((16, 6)).astype(np.float32))
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        mu = mu0.to(dev).requires_grad_(True)
+        lv = lv0.to(dev).requires_grad_(True)
+        kops.reset_launch_counts()
+        z = kops.sample_normal(mu, lv, keys)
+        (z * g.to(dev)).sum().backward()
+        grads.append((z.detach().cpu(), mu.grad.cpu(), lv.grad.cpu()))
+        assert z.grad_fn is not None
+        assert kops.launch_counts()["sample_normal"] == (dev.type == "cuda")
+    for got, want in zip(grads[0], grads[1]):
+        torch.testing.assert_close(got, want, rtol=2e-6, atol=1e-6)
+    assert grads[0][2].abs().max() > 0
+    with torch.no_grad():
+        z = kops.sample_normal(mu0.to(cuda_device), lv0.to(cuda_device),
+                               keys)
+    assert z.grad_fn is None
+
+
+def test_card_traced_demo_matches_cpu_engine(cuda_device):
+    """The traced cloud-mask demo on the card against the CPU engine over
+    the same weights and calibration: accel int8 results bit-exact where
+    the chain is int8 from the input, cloud_prob within the ±1-code
+    sigmoid rule (1e-6 relative), flags equal away from the threshold."""
+    from repro_torch.frontend import demo
+    tm = demo.build_traced()
+    reqs = demo.synthetic_requests(8, seed=3)
+    cpu = Engine(tm.graph, tm.params, device="cpu")
+    cpu.calibrate(reqs[:4])
+    card = Engine(tm.graph, tm.params, device=cuda_device)
+    card.share_calibration(cpu)
+    batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+    kops.reset_launch_counts()
+    got = {k: v.cpu() for k, v in card.run_batch(batch, "accel").items()}
+    want = cpu.run_batch(batch, "accel")
+    counts = kops.launch_counts()
+    assert counts["conv2d_int8"] > 0 and counts["int8_matmul"] > 0
+    torch.testing.assert_close(got["cloud_prob"], want["cloud_prob"],
+                               rtol=1e-4, atol=1e-6)
+    off = (want["cloud_prob"] - demo.CLOUD_THRESHOLD).abs() > 1e-4
+    assert torch.equal(got["cloud_flag"][off], want["cloud_flag"][off])
+
+
+def test_card_qat_step_matches_cpu(cuda_device):
+    """One distillation step of the QAT example on a narrow VAE: the card's
+    loss and gradients within 1e-3 relative of the CPU port's (the loss
+    differences outputs that agree to ~1e-3), the logvar head's gradient
+    reaching through the sampler kernel."""
+    from repro_torch.examples import qat_finetune as qat
+    g = tvae.build_graph((16, 32, 3))
+    params = tvae.init_params(0, (16, 32, 3))
+    sample = tvae.synthetic_input(np.random.default_rng(0), (16, 32, 3))
+    card_p = {n: {k: v.to(cuda_device) for k, v in p.items()}
+              for n, p in params.items()}
+    kops.reset_launch_counts()
+    _, l_card, g_card = qat.distill_step(g, card_p, card_p, sample, 1e-3)
+    assert kops.launch_counts()["sample_normal"] == 2
+    _, l_cpu, g_cpu = qat.distill_step(g, params, params, sample, 1e-3)
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-3 * float(l_cpu)
+    for n in g_cpu:
+        for k, want in g_cpu[n].items():
+            err = (g_card[n][k].cpu() - want).abs().max()
+            assert err <= 1e-3 * want.abs().max(), (n, k)
+    assert g_card["logvar"]["w"].abs().max() > 0

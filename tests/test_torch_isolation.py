@@ -3,8 +3,9 @@
 * ``import repro_torch`` (every submodule) never loads ``jax``;
 * nothing in ``src/repro_torch`` or ``chip_smoke.py`` imports the JAX
   package ``repro``;
-* the six numpy-only modules the port copies equal their originals after
-  the ``repro.`` -> ``repro_torch.`` rewrite, so any drift is deliberate;
+* the six numpy-only modules the port copies, and the front-end's
+  ``frontend/ir.py``, equal their originals after the ``repro.`` ->
+  ``repro_torch.`` rewrite, so any drift is deliberate;
 * entry points need a card unless the caller asks for the CPU, and
   ``chip_smoke.py`` fails (printing no verdict) without one;
 * the launcher accepts only the flags the ported slices support, and
@@ -41,12 +42,21 @@ def _port_modules():
 LM_SLICE = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd",
             "repro_torch.core.lm_quant", "repro_torch.core.lm",
             "repro_torch.models.lm")
+FRONTEND_SLICE = ("repro_torch.frontend", "repro_torch.frontend.ir",
+                  "repro_torch.frontend.ops", "repro_torch.frontend.trace",
+                  "repro_torch.frontend.translators",
+                  "repro_torch.frontend.demo", "repro_torch.core.quantize",
+                  "repro_torch.examples.quickstart",
+                  "repro_torch.examples.qat_finetune",
+                  "repro_torch.examples.eclipse_orbit",
+                  "repro_torch.examples.onboard_serving")
 
 
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.core.scheduler" in mods and len(mods) >= 25
     assert set(LM_SLICE) <= set(mods)
+    assert set(FRONTEND_SLICE) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -83,6 +93,26 @@ def test_copied_modules_equal_their_originals(name):
     assert port == re.sub(r"\brepro\.", "repro_torch.", orig)
 
 
+@pytest.mark.parametrize("mod", FRONTEND_SLICE)
+def test_the_frontend_qat_and_examples_alone_load_no_jax(mod):
+    """Each module of the front-end/QAT/examples slice imported on its
+    own, in a fresh process, loads neither jax nor repro."""
+    code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, check=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_frontend_ir_equals_its_original():
+    orig = (ROOT / "src" / "repro" / "frontend" / "ir.py").read_text()
+    port = (PORT / "frontend" / "ir.py").read_text()
+    assert port == re.sub(r"\brepro\.", "repro_torch.", orig)
+
+
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = tcnet.build_graph(input_shape=(8, 8, 2), channels=(2, 2, 2),
@@ -111,7 +141,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lm-legacy"], ["--trace-demo"], ["--arch", "tinyllama-1.1b"],
+    ["--lm-legacy"], ["--prompt-len", "8"], ["--arch", "tinyllama-1.1b"],
     ["--kv8"], ["--w8"]])
 def test_launcher_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
