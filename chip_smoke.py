@@ -65,7 +65,22 @@ functions:
   the CPU engine;
 * the launcher's ``--trace-demo`` (16 requests) and the example twins:
   ``quickstart --trace`` on vae_encoder, and ``eclipse_orbit`` whose
-  modeled-clock ledger equals its CPU run's.
+  modeled-clock ledger equals its CPU run's;
+* the large-model stack (``lm_arch``): every family's ``reduced()``
+  config (dense, ``qkv_bias``, MoE, SSM, hybrid, an embedding front end,
+  a hybrid with a tail layer) on the card against the port on the CPU,
+  fp32 (1e-4 of max|logits|) and bf16 (2e-2), chunked and flash
+  attention, one ``--kv8`` and one ``--w8`` run; then zamba2-1.2b (B=4,
+  2048-token prompts) and tinyllama-1.1b (B=4, 512) at full width in
+  bf16 through the prefill/decode steps under ``attn_impl="pallas"``, 16
+  greedy tokens each, with the derived launch counts (a prefill: an
+  ``ssd`` per Mamba-2 layer, a flash per attention application; a decode
+  step: neither), the reference's prefill/decode consistency bound and
+  chunked against flash held on the same weights in fp32 (printed in
+  bf16), and the prefill and decode-step wall, device busy, idle share
+  and tok/s. flash and ``ssd`` also take bf16 inputs at their served
+  shapes in their own phases: bf16 out, within one bf16 ulp of the plain
+  version (plus the fp32 tolerance where a value near zero needs it).
 
 Besides the kernels those paths run, the fp32 ``conv2d`` (on no served
 path, as in the reference) is held against its plain version and timed
@@ -112,6 +127,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -140,6 +156,28 @@ LM_SLOTS = 4
 LM_REF_STEPS = 4
 # card vs CPU engine on the LM's accel path (see lm_reference_phase)
 LM_LOGITS_ATOL = 2e-2
+# lm_arch: the large-model stack. Card vs the CPU port on each family's
+# reduced() config (and a hybrid with a tail layer): B=2, 40 positions, 4
+# decode steps; fp32 to 1e-4 of max|logits|, bf16 to the LM slice's 2e-2
+LM_ARCH_CASES = {
+    "dense": ("tinyllama-1.1b", None), "qkv_bias": ("qwen1.5-0.5b", None),
+    "moe": ("llama4-scout-17b-a16e", None), "ssm": ("mamba2-780m", None),
+    "hybrid": ("zamba2-1.2b", None), "embed": ("musicgen-large", None),
+    "hybrid_tail": ("zamba2-1.2b", 5)}
+LM_ARCH_B, LM_ARCH_S, LM_ARCH_STEPS = 2, 40, 4
+LM_ARCH_F32_TOL = 1e-4
+LM_ARCH_BF16_TOL = 2e-2
+# full width, bf16: two computations of the same logits (prefill/decode,
+# chunked/pallas) differ by at most this share of the bf16 prefill's own
+# deviation from fp32, plus one bf16 ulp of max|logits|; the reference at
+# zamba2's and tinyllama's depth, d_model cut to 256-1024: 0.49-0.82 where
+# the gap spans many ulps, at most 0.3 ulp beyond it where it spans a few
+# (tests/test_torch_arch_depth.py)
+LM_ARCH_BF16_GAP_RATIO = 1.0
+# served at full width in bf16: (arch, B, prompt, new tokens, reduced?)
+LM_ARCH_FULL = (("zamba2-1.2b", 4, 2048, 16, False),
+                ("tinyllama-1.1b", 4, 512, 16, False))
+LM_ARCH_KERNELS = ("flash_attention", "ssd")
 # the kernels each served path must launch
 CNN_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply")
 LM_KERNELS = ("int8_matmul", "quantize_apply", "flash_attention", "ssd")
@@ -369,6 +407,29 @@ def exact(torch, got, want) -> float:
     if not torch.equal(got, want):
         raise AssertionError(f"not bit-exact: max |diff| {err}")
     return err
+
+
+def bf16_ulps(torch, got, want, tol: float = 0.0):
+    """(max |got - want| in bf16 ulps of the larger magnitude, elements
+    beyond one ulp); raises unless both are bf16, of one shape and finite
+    and every element is within one ulp plus ``tol`` (absolute and
+    relative: the fp32 difference of the two computations, which a value
+    near zero can show beyond one of its ulps)."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"dtypes {got.dtype} {want.dtype}, want bf16")
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite values")
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (g - w).abs()
+    bad = int((diff > ulp + tol * (1.0 + w.abs())).sum())
+    if bad:
+        raise AssertionError(f"{bad} elements beyond one bf16 ulp + {tol}")
+    return float((diff / ulp).max()), int((diff > ulp).sum())
 
 
 def cpu_engine_of(card_engine):
@@ -1076,8 +1137,8 @@ def _causal_pairs(sq: int, sk: int) -> int:
     return sum(min(i + 1, sk) for i in range(sq))
 
 
-@phase("flash_attention vs plain (the LM's prefill shape, a ragged GQA "
-       "shape, a non-causal shape)")
+@phase("flash_attention vs plain (the LM's prefill shape, tinyllama's 8:1 "
+       "GQA prefill shape, a ragged GQA shape, a non-causal shape)")
 def flash_phase(torch, gen, flush):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1085,6 +1146,7 @@ def flash_phase(torch, gen, flush):
     cases = []
     # (B, Sq, Sk, Hq, Hkv, hd, causal)
     for b, sq, sk, hq, hkv, hd, causal in ((4, 2048, 2048, 32, 32, 64, True),
+                                           (4, 512, 512, 32, 4, 64, True),
                                            (2, 37, 37, 4, 2, 8, True),
                                            (1, 512, 512, 32, 32, 64, False)):
         q = torch.randn((b, sq, hq, hd), generator=gen).to(dev)
@@ -1117,6 +1179,20 @@ def flash_phase(torch, gen, flush):
         print(f"     {ops / 1e9:.2f} GFLOP ({3 * ops / 1e9:.2f} as 3xTF32), "
               f"{nbytes / 1e6:.1f} MB; for information, the plain fp32 "
               f"SIMT bound: {simt:.4f} ms")
+    # bf16 in, bf16 out (the lm_arch path's dtype) at the served shapes
+    # (zamba2's, tinyllama's): fp32 inside, one rounding, within one bf16
+    # ulp of the plain version
+    for b, s, hq, hkv in ((4, 2048, 32, 32), (4, 512, 32, 4)):
+        q, k, v = (torch.randn((b, s, h, 64), generator=gen).to(
+            dev, torch.bfloat16) for h in (hq, hkv, hkv))
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ulps, over = bf16_ulps(torch, out, fa.flash_attention_plain(
+            q, k, v, True), 2e-5)
+        print(f"   bf16 B={b} S={s} Hq={hq} Hkv={hkv} hd=64 causal: out "
+              f"{out.dtype}, max |diff| {ulps:.3g} bf16 ulp against the "
+              f"plain version; {over} element(s) beyond one ulp, all within "
+              f"it + 2e-5")
     print("   tolerance 2e-5 (abs and rel) against the plain version; "
           "bound: 3 x the products at 495 TFLOP/s dense TF32; "
           "library_ms: F.scaled_dot_product_attention fp32 on [B,H,S,hd]")
@@ -1199,6 +1275,20 @@ def ssd_phase(torch, gen, flush):
     print(f"   split run with init_state: max |diff| {err} against the "
           f"whole run and the plain version")
     cases[0]["err"] = max(cases[0]["err"], err)
+    # bf16 x (the lm_arch path's dtype) at the served shape: y in bf16
+    # within one ulp of the plain version, the final state fp32
+    x, B_, C_, dt, A = inputs(4, 2048, 64, 64, 64)
+    x = x.to(torch.bfloat16)
+    y, fin = sd.ssd(x, B_, C_, dt, A)
+    torch.cuda.synchronize()
+    y_p, fin_p = sd.ssd_plain(x, B_, C_, dt, A)
+    ulps, over = bf16_ulps(torch, y, y_p, 1e-4)
+    assert fin.dtype == torch.float32
+    err = close(torch, fin, fin_p, 1e-4)
+    print(f"   bf16 x B=4 S=2048 H=64 P=N=64: y {y.dtype}, max |diff| "
+          f"{ulps:.3g} bf16 ulp against the plain version; {over} "
+          f"element(s) beyond one ulp, all within it + 1e-4; final state "
+          f"fp32, max |diff| {err:.3g}")
     print("   tolerance 1e-4 (abs and rel) against the plain version; "
           "bound: 3 x the products at 495 TFLOP/s dense TF32; "
           "library_ms: none (PyTorch has no SSD scan)")
@@ -1644,6 +1734,267 @@ def lm_profile_phase(torch, lm):
     for r in ids:
         lm.release_slot(r)
     return out
+
+
+# ---------------------------------------------------------------------------
+# lm_arch: the ten-arch large-model stack (configs/, nn/, launch/steps.py)
+# ---------------------------------------------------------------------------
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _arch_cfg(arch, layers=None, kv_quant=False, smoke=True):
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.nn.dims import compute_dims
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = reduced(cfg)
+    over = {"kv_quant": kv_quant and cfg.attends}
+    if layers:
+        over["num_layers"] = layers
+    cfg = dataclasses.replace(cfg, **over)
+    return cfg, compute_dims(cfg)
+
+
+def _arch_steps(torch, cfg, dims, params, batch, n_steps, impl, feed=None):
+    """``serve.lm_steps`` (fresh embeddings for an embedding front end
+    from a seeded generator): (the logits of each step, the inputs fed)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepOptions
+    out = list(serve.lm_steps(cfg, dims, params, batch, n_steps,
+                              StepOptions(impl),
+                              torch.Generator().manual_seed(11), feed))
+    return [lg for lg, _ in out], [x for _, x in out[1:]]
+
+
+def _rel(torch, got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite logits")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@phase("lm_arch: the large-model stack's reduced configs (dense, qkv_bias, "
+       "moe, ssm, hybrid, embed, hybrid with a tail) on the card against the "
+       "port on the CPU: fp32 and bf16, chunked and pallas; one --kv8 and "
+       "one --w8 run")
+def lm_arch_card_vs_cpu_phase(torch, device="cuda"):
+    """Params built once per config from one explicit generator on the
+    CPU (bf16), copied to the card; fp32 runs cast every leaf on both
+    sides. Prefill + LM_ARCH_STEPS greedy decode steps, the card's tokens
+    fed to both sides. fp32 logits within 1e-4 of max|logits| (flash
+    holds 2e-5 and ssd 1e-4 against their plain versions: flash_phase,
+    ssd_phase); bf16 within the 2e-2 bound, cuBLAS's reduced-precision
+    bf16 reductions off (device.py)."""
+    from repro_torch.core import lm_quant
+    from repro_torch.launch import serve
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.params import tree_map
+    worst = {}
+    runs = [(case, dtype, impl, False, False)
+            for case in LM_ARCH_CASES for dtype in ("f32", "bf16")
+            for impl in ("chunked", "pallas")]
+    runs += [("hybrid_tail", "bf16", "pallas", True, False),
+             ("dense", "bf16", "pallas", False, True)]
+    for case, dtype, impl, kv8, w8 in runs:
+        arch, layers = LM_ARCH_CASES[case]
+        cfg, dims = _arch_cfg(arch, layers, kv8)
+        cpu_p = model_lib.init_params(cfg, dims,
+                                      torch.Generator().manual_seed(5), "cpu")
+        if dtype == "f32":
+            cpu_p = tree_map(lambda a: a.float(), cpu_p)
+        card_p = tree_map(lambda a: a.to(device), cpu_p)
+        if w8:
+            cpu_p, card_p = (lm_quant.dequantize_params(
+                lm_quant.quantize_params(p)) for p in (cpu_p, card_p))
+        batch = serve.lm_prompts(cfg, dims, LM_ARCH_B, LM_ARCH_S,
+                                 torch.Generator().manual_seed(6), "cpu")
+        if dtype == "f32" and "embeds" in batch:
+            batch["embeds"] = batch["embeds"].float()
+        card, fed = _arch_steps(torch, cfg, dims, card_p,
+                                {k: v.to(device) for k, v in batch.items()},
+                                LM_ARCH_STEPS, impl)
+        _sync(torch, device)
+        # the CPU is fed the card's inputs (its greedy tokens), so a
+        # step's difference is that step's own
+        cpu, _ = _arch_steps(torch, cfg, dims, cpu_p, batch, LM_ARCH_STEPS,
+                             impl, feed=[x.cpu() for x in fed])
+        errs = [_rel(torch, g, c) for g, c in zip(card, cpu)]
+        tol = LM_ARCH_F32_TOL if dtype == "f32" else LM_ARCH_BF16_TOL
+        tag = (f"{case} {dtype} {impl}" + (" --kv8" if kv8 else "")
+               + (" --w8" if w8 else ""))
+        worst[tag] = max(errs)
+        print(f"   {tag}: logits max rel err {max(errs):.3g} over prefill "
+              f"+ {LM_ARCH_STEPS} steps (tolerance {tol})")
+        assert max(errs) <= tol, (tag, errs)
+    return worst
+
+
+@phase("main path: lm_arch: zamba2-1.2b (B=4, prompt 2048) and "
+       "tinyllama-1.1b (B=4, prompt 512) at full width in bf16 through the "
+       "prefill/decode steps (attn_impl=pallas), 16 greedy tokens each")
+def lm_arch_serve_phase(torch, device="cuda", full=None):
+    """Every count set to 0 just before the two models are served and
+    read just after: per prefill the derived launches (an ssd per Mamba-2
+    layer, a flash per attention application), none per decode step
+    (the reference's decode is einsum/recurrence). Then, outside the
+    counted run: the prefill/decode consistency check, the chunked path
+    against pallas, and the times."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepOptions
+    full = LM_ARCH_FULL if full is None else full
+    dev = torch.device(device)
+    served = []
+    ops.reset_launch_counts()
+    for arch, b, s, n_tok, smoke in full:
+        cfg, dims = _arch_cfg(arch, smoke=smoke)
+        t0 = time.perf_counter()
+        params = serve.lm_arch_params(cfg, dims, dev, seed=0)
+        _sync(torch, dev)
+        t_init = time.perf_counter() - t0
+        batch = serve.lm_prompts(cfg, dims, b, s,
+                                 torch.Generator().manual_seed(7), dev)
+        # the launches of each step: the prefill's, then each decode's
+        deltas, toks, finite = [], [], []
+        before = ops.launch_counts()
+        for logits, _ in serve.lm_steps(cfg, dims, params, batch, n_tok,
+                                        StepOptions("pallas")):
+            after = ops.launch_counts()
+            deltas.append({k: after[k] - before[k] for k in LM_ARCH_KERNELS})
+            toks.append(torch.argmax(logits, -1))
+            finite.append(torch.isfinite(logits).all())
+            before = after
+        _sync(torch, dev)
+        served.append((arch, cfg, dims, params, batch, torch.stack(finite),
+                       torch.stack(toks, 1).cpu(), deltas[0], deltas[1:], b,
+                       s, n_tok, t_init))
+    counts = counts_with_routes(ops)
+    print(f"   launches over the served run: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for (arch, cfg, dims, params, batch, finite, toks, d_pre, d_dec, b, s,
+         n_tok, t_init) in served:
+        want = {"flash_attention": cfg.num_attn_layers(),
+                "ssd": (cfg.num_layers if cfg.family in ("ssm", "hybrid")
+                        else 0)}
+        print(f"   {arch}: params {t_init:.2f} s on the card; prefill "
+              f"B={b} x {s}: launches {d_pre} (derived {want}); decode "
+              f"steps: {d_dec[0]} each; tokens[0] {toks[0].tolist()}")
+        assert d_pre == want, (arch, d_pre, want)
+        assert all(d == {"flash_attention": 0, "ssd": 0} for d in d_dec)
+        assert bool(finite.all()), f"{arch}: non-finite logits"
+        _lm_arch_checks(torch, cfg, dims, params, batch, s, arch)
+        _lm_arch_times(torch, cfg, dims, params, batch, s, n_tok, dev, arch)
+        del params, batch
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return counts
+
+
+def _lm_arch_checks(torch, cfg, dims, params, batch, s, arch):
+    """Two computations of the same next-token logits, on the card, in
+    bf16 as served and in fp32 (the same weights cast): the reference's
+    prefill/decode consistency check (a decode of position s - 1 after a
+    prefill of s - 1, against the prefill of s) and the chunked attention
+    path against pallas. fp32: consistency to the reference's bounds
+    (atol 0.15, rtol 0.05), chunked vs pallas to 1e-4 of max|logits|.
+    bf16: each max |gap| within LM_ARCH_BF16_GAP_RATIO of ``dev``, the
+    bf16 prefill's own max deviation from the fp32 one, plus one bf16 ulp
+    of max|logits| (the reference's own readings at depth:
+    tests/test_torch_arch_depth.py); the share of logits beyond the
+    reference's bounds is printed."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.nn.params import tree_map
+    toks = batch["tokens"]
+    got = {}
+    for dtype in ("bf16", "f32"):
+        p = params if dtype == "bf16" else tree_map(lambda a: a.float(),
+                                                    params)
+        (full, _), = serve.lm_steps(cfg, dims, p, batch, 0,
+                                    StepOptions("pallas"))
+        _, (dec, _) = serve.lm_steps(cfg, dims, p, {"tokens": toks[:, :-1]},
+                                     1, StepOptions("pallas"),
+                                     feed=[toks[:, -1:]])
+        (chunked, _), = serve.lm_steps(cfg, dims, p, batch, 0,
+                                       StepOptions("chunked"))
+        got[dtype] = [x.float().cpu() for x in (full, dec, chunked)]
+        del p
+        if full.is_cuda:
+            torch.cuda.empty_cache()
+    dev = float((got["bf16"][0] - got["f32"][0]).abs().max())
+    for dtype, (a, c, chunked) in got.items():
+        gap = float((a - c).abs().max())
+        beyond = float(((a - c).abs() > 0.15 + 0.05 * a.abs()).float().mean())
+        cvp = float((chunked - a).abs().max())
+        print(f"   {arch} {dtype}: decode of position {s - 1} after a "
+              f"prefill of {s - 1} vs the prefill of {s}: max |diff| "
+              f"{gap:.4g} (|logits| <= {float(a.abs().max()):.4g}), "
+              f"{beyond:.4g} of the logits beyond atol 0.15 + rtol 0.05; "
+              f"chunked vs pallas prefill logits: max |diff| {cvp:.4g}, "
+              f"rel {_rel(torch, chunked, a):.4g}")
+        if dtype == "f32":
+            torch.testing.assert_close(c, a, atol=0.15, rtol=0.05)
+            assert _rel(torch, chunked, a) <= LM_ARCH_F32_TOL
+            continue
+        # the logits' own rounding: two bf16 results an ulp apart
+        ulp = 2.0 ** (math.floor(math.log2(float(a.abs().max()))) - 7)
+        limit = LM_ARCH_BF16_GAP_RATIO * dev + ulp
+        print(f"   {arch} bf16 vs fp32 prefill: dev {dev:.4g}; gap / dev: "
+              f"consistency {gap / dev:.3f}, chunked vs pallas "
+              f"{cvp / dev:.3f}; limit {LM_ARCH_BF16_GAP_RATIO} x dev + "
+              f"one bf16 ulp of max|logits| = {limit:.4g}")
+        assert gap <= limit, (arch, gap, limit)
+        assert cvp <= limit, (arch, cvp, limit)
+
+
+def _lm_arch_times(torch, cfg, dims, params, batch, s, n_tok, dev, arch):
+    """Prefill and decode-step wall (``serve.generate``'s clocks, warm)
+    and device busy (the profiler's device rows of one prefill and one
+    decode step), with the idle share, and tok/s, beside the card's name
+    and power limit."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepOptions
+    if dev.type != "cuda":
+        return
+    from torch.profiler import ProfilerActivity, profile
+    pallas = StepOptions("pallas")
+    b = batch["tokens"].shape[0]
+    serve.generate(cfg, dims, params, batch, n_tok, pallas)        # warm
+    _, pre_wall, dec_wall = serve.generate(cfg, dims, params, batch, n_tok,
+                                           pallas)
+    dec_wall /= n_tok
+    busy = {}
+    steps = serve.lm_steps(cfg, dims, params, batch, 1, pallas)
+    for kind in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                next(steps)
+                torch.cuda.synchronize()
+        except RuntimeError as e:        # the tracer itself, not the port
+            print(f"   torch.profiler failed ({e}): not measured")
+            break
+        rows = device_rows(torch, prof)
+        busy[kind] = sum(r[0] for r in rows) * 1e-6 if rows else None
+        if kind == "prefill":
+            for dev_us, count, key in rows[:8]:
+                print(f"   {dev_us / 1e3:9.4f} ms  x{count:<5d} {key[:70]}")
+    steps.close()
+    gpu = gpu_line()
+    for kind, wall, n in (("prefill", pre_wall, b * s),
+                          ("decode step", dec_wall, b)):
+        bz = busy.get(kind.split()[0])
+        bz_txt = ("device busy not measured" if bz is None else
+                  f"device busy {bz * 1e3:.3f} ms, idle share "
+                  f"{1 - bz / wall:.3f}")
+        print(f"   {arch} {kind} B={b}: wall {wall * 1e3:.3f} ms, {bz_txt}, "
+              f"{n / wall:.1f} tok/s  [{gpu}]")
 
 
 @phase("main path: serve cnet_plus_scalar (full width) on accel with "
@@ -2610,6 +2961,11 @@ def main() -> int:
                 paths["lm --autotune"] = (TUNED_LM_KERNELS, counts)
             del sched, lm
             torch.cuda.empty_cache()
+        lm_arch_card_vs_cpu_phase(torch)
+        counts = lm_arch_serve_phase(torch)
+        if counts is not None:
+            paths["lm_arch"] = (LM_ARCH_KERNELS, counts)
+        torch.cuda.empty_cache()
         counts = fault_path(torch)
         if counts is not None:
             paths["fault_phase"] = (FAULT_KERNELS, counts)
@@ -2628,7 +2984,7 @@ def main() -> int:
         counts = examples_phase(torch)
         if counts is not None:
             paths["examples"] = (EXAMPLE_KERNELS, counts)
-        if len(paths) != 8 + len(SPACE_MODELS):
+        if len(paths) != 9 + len(SPACE_MODELS):
             FAILURES.append("a served path failed")
         for path, (names, counts) in paths.items():
             print(f"launches on the {path} path: {counts}")

@@ -1,0 +1,16 @@
+"""qwen1.5-0.5b — small dense with QKV bias [hf:Qwen/Qwen1.5-0.5B]."""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    arch_id="qwen1.5-0.5b",
+    family="dense",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=2816,
+    vocab_size=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+    notes="QKV bias; tied embeddings (vocab dominates params)",
+))

@@ -3,12 +3,13 @@
 The reference package and the port draw different random numbers from
 the same seed, so anything both must compute on — parameters, calibration
 state — is handed over as numpy arrays. Layouts stay the reference's:
-HWIO conv weights, [K, N] dense weights.
+HWIO conv weights, [K, N] dense weights; the large-model stack's param and
+cache trees keep the reference's nested keys and stacked layer dims.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -47,3 +48,19 @@ def calibration_from_numpy(act_absmax: Mapping[str, float],
     resolve_device(device)
     return Calibration({k: float(v) for k, v in act_absmax.items()},
                        {k: float(v) for k, v in ptq_err.items()})
+
+
+def tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """A nested dict of numpy arrays (the reference's ``nn`` param or
+    cache tree) -> the same dict of tensors on ``device``. A bfloat16
+    array (numpy has no bf16 of its own: the reference's arrays carry an
+    extension dtype named ``bfloat16``) crosses as its uint16 bits, so
+    this module needs no package that defines the dtype."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    dev = resolve_device(device)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+    return _tensor(a, dev)

@@ -29,13 +29,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import memory as memory_mod
+from repro_torch.kernels.sample import split
 
 
 def split_seeds(seed: np.ndarray, n: int) -> np.ndarray:
-    """``n`` independent [2] uint32 seed pairs derived from one — the
-    port's counterpart of splitting a PRNG key."""
-    rng = np.random.default_rng(np.asarray(seed, np.uint32))
-    return rng.integers(0, 2 ** 32, size=(n, 2), dtype=np.uint32)
+    """``jax.random.split`` of the raw key ``seed`` [2] into ``n`` keys
+    [n, 2] uint32 (threefry-2x32, ``kernels/sample.py: split``), so a
+    served batch draws the reference's per-sample keys."""
+    return split(seed, n).astype(np.uint32)
 
 
 @dataclasses.dataclass

@@ -310,10 +310,11 @@ class _ModelService:
         # ECC/TMR-priced ones.
         self.protection: str = "none"
         # per-service seed chain: each dispatch takes the next [2] uint32
-        # seed, from which its pipeline derives one seed pair per sample
+        # raw key, from which its pipeline splits one key per sample. The
+        # chain starts at the raw data of PRNGKey(u32(name[:4])): [0, u32]
         self._rng = np.array(
-            [np.frombuffer(name.encode()[:4].ljust(4, b"\0"), np.uint32)[0],
-             0], np.uint32)
+            [0, np.frombuffer(name.encode()[:4].ljust(4, b"\0"),
+                              np.uint32)[0]], np.uint32)
 
     def next_rng(self) -> np.ndarray:
         self._rng, sub = split_seeds(self._rng, 2)

@@ -1,5 +1,5 @@
 """Causal / non-causal GQA attention with an online softmax (flash
-attention), fp32.
+attention), fp32 inside, the output in the query's dtype.
 
 Replaces the Pallas kernel ``flash_attention`` (src/repro/kernels/
 flash_attention.py, ``_kernel``) with ``csrc/flash_attention.cu``: one
@@ -18,8 +18,10 @@ source's note).
 Semantics, shared by the kernel and :func:`flash_attention_plain`: scores
 ``(q . k) * hd**-0.5``; causal masking keeps ``qpos >= kpos`` with both
 positions counted from 0 (top-left aligned, so ``Sq != Sk`` is allowed);
-masked scores are ``-2e38``; the output is ``acc / max(l, 1e-30)``. Query
-head ``h`` reads K/V head ``h // (Hq // Hkv)``.
+masked scores are ``-2e38``; the output is ``acc / max(l, 1e-30)``, computed in fp32 and rounded
+once to ``q``'s dtype (the reference's ``.astype(o_ref.dtype)``; bf16
+inputs are widened to fp32 before the launch). Query head ``h`` reads K/V
+head ``h // (Hq // Hkv)``.
 """
 from __future__ import annotations
 
@@ -76,14 +78,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(scores - m)
         l = p.sum(-1, keepdim=True).clamp_min(1e-30)
         out[i] = (torch.matmul(p, vi) / l).transpose(0, 1)
-    return out
+    return out.to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = 256,
                     bk: int = 256) -> torch.Tensor:
     """``q`` [B, Sq, Hq, hd], ``k``/``v`` [B, Sk, Hkv, hd] -> [B, Sq, Hq,
-    hd] float32. ``bq``/``bk`` are the reference's block sizes, kept for
+    hd] in ``q``'s dtype. ``bq``/``bk`` are the reference's block sizes, kept for
     parity: they do not change the result (the kernel's tiles are 64)."""
     _check(q, k, v)
     if build.on_cpu(q, k, v):
@@ -93,6 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, hkv = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {hd} > {MAX_HEAD_DIM}")
+    dtype = q.dtype
     q, k, v = (t.float() for t in (q, k, v))
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, hq, hd), dtype=torch.float32, device=q.device)
@@ -106,4 +109,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             build.stream(q))
     build.check(lib, rc, "flash_attention")
     launches += 1
-    return out
+    return out.to(dtype)

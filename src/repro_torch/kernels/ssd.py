@@ -1,4 +1,6 @@
-"""Mamba-2 SSD (state-space duality) chunked scan, fp32.
+"""Mamba-2 SSD (state-space duality) chunked scan, fp32 inside; ``y`` in
+``x``'s dtype (rounded once from fp32, as the reference's
+``.astype(y_ref.dtype)``), the final state fp32.
 
 Replaces the Pallas kernel ``ssd`` (src/repro/kernels/ssd.py, ``_kernel``)
 with ``csrc/ssd.cu``: the TPU walks the chunks of each (batch, head) on a
@@ -90,7 +92,7 @@ def ssd_plain(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
         suffix = torch.exp(cum[:, -1:, :] - cum) * dtc       # [b,q,h]
         s_new = torch.einsum("bjhp,bjn->bhpn", xc * suffix[..., None], bc)
         state = state * torch.exp(cum[:, -1, :])[..., None, None] + s_new
-    return torch.cat(ys, dim=1), state
+    return torch.cat(ys, dim=1).to(x.dtype), state
 
 
 def ssd(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
@@ -99,8 +101,8 @@ def ssd(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
         chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan. ``x`` [B,S,H,P], ``B_``/``C_`` [B,S,N], ``dt``
     [B,S,H] (already positive), ``A`` [H] (negative), ``init_state``
-    [B,H,P,N] or None. Returns (y [B,S,H,P], final_state [B,H,P,N]),
-    float32."""
+    [B,H,P,N] or None. Returns (y [B,S,H,P] in ``x``'s dtype,
+    final_state [B,H,P,N] float32)."""
     _check(x, B_, C_, dt, A, init_state)
     if build.on_cpu(x, B_, C_, dt, A, init_state):
         return ssd_plain(x, B_, C_, dt, A, init_state, chunk)
@@ -111,6 +113,7 @@ def ssd(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
         raise ValueError(f"ssd: P={p} (<= {MAX_P}), N={n} (<= {MAX_N}), "
                          f"B={b} and H={h} (<= {MAX_GRID_YZ})")
     q = chunk_size(s, chunk)
+    dtype = x.dtype
     x, B_, C_, dt, A = (t.float().contiguous() for t in (x, B_, C_, dt, A))
     if init_state is not None:
         init_state = init_state.float().contiguous()
@@ -128,4 +131,4 @@ def ssd(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
             build.stream(x))
     build.check(lib, rc, "ssd")
     launches += 1
-    return y, final
+    return y.to(dtype), final

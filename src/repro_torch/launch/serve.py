@@ -15,6 +15,14 @@ the compiled prefill ladder and per-rung decode programs over static int8
 KV slots, driven by the LM scheduler. ``--requests`` prompts of
 ``--tokens`` new tokens each share ``--slots`` KV slots.
 
+``--mode lm --lm-legacy`` serves one of the ten published architectures
+(``--arch``, ``configs/``; ``--smoke`` its reduced config) from seeded
+random weights with the prefill and decode steps of ``launch/steps.py``:
+``--batch`` prompts of ``--prompt-len`` tokens, ``--tokens`` greedy
+tokens each, and prints the prefill and decode times and a sample
+continuation. ``--kv8`` keeps the KV cache in int8, ``--w8`` quantizes
+the weights to int8 per tensor and serves them dequantized.
+
 ``--autotune`` (both modes) tunes each batch rung's kernel schedule at
 lowering and prepacks the int8 weights into tile-aligned arena buffers;
 ``--tuning-cache PATH`` keeps the picks in a JSON file that a later run
@@ -50,6 +58,8 @@ Usage::
         --model cnet_plus_scalar --backend accel --requests 48 --batch 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
         --backend accel --requests 8 --tokens 16 --slots 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+        --lm-legacy --arch zamba2-1.2b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mode space \\
         --model cnet_plus_scalar --backend accel --autotune \\
         --tuning-cache tuning.json
@@ -62,10 +72,12 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import inspector
@@ -74,6 +86,7 @@ from repro_torch.core.energy import PowerEnvelope
 from repro_torch.core.engine import Engine
 from repro_torch.core.scheduler import (BACKENDS, ContinuousBatchingScheduler,
                                         capped_ladder, poisson_arrivals)
+from repro_torch.device import resolve_device
 from repro_torch.models import SPACE_MODELS, synthetic_requests
 
 # selective-downlink predicates per use case (the paper's decision layer)
@@ -336,6 +349,129 @@ def serve_lm_compiled(args, cfg=None) -> int:
     return 0 if len(comps) == args.requests else 1
 
 
+DEFAULT_ARCH = "tinyllama-1.1b"
+DEFAULT_PROMPT_LEN = 64
+
+
+def check_lm_flags(args) -> None:
+    """A usage error for the arch server's flags outside ``--mode lm
+    --lm-legacy`` (they would be ignored silently otherwise)."""
+    legacy = (args.arch is not None or args.smoke
+              or args.prompt_len is not None or args.kv8 or args.w8
+              or not args.lm_compiled)
+    if legacy and (args.mode != "lm" or args.lm_compiled):
+        raise SystemExit("--lm-legacy/--arch/--smoke/--prompt-len/--kv8/"
+                         "--w8 configure the architecture server; pass "
+                         "--mode lm --lm-legacy")
+
+
+def lm_arch_config(args):
+    """``--arch`` (``--smoke``: its reduced config), with the int8 KV
+    cache under ``--kv8`` for the archs that attend."""
+    from repro_torch.configs import get_arch, reduced
+    cfg = get_arch(args.arch or DEFAULT_ARCH)
+    if args.smoke:
+        cfg = reduced(cfg)
+    if args.kv8 and cfg.attends:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    return cfg
+
+
+def lm_arch_params(cfg, dims, device, w8: bool = False, seed: int = 0):
+    """Seeded random bf16 weights on ``device``; ``w8``: quantized to int8
+    per tensor and dequantized back to bf16 (the served weights)."""
+    from repro_torch.core import lm_quant
+    from repro_torch.nn import model as model_lib
+    params = model_lib.init_params(cfg, dims,
+                                   torch.Generator().manual_seed(seed), device)
+    if w8:
+        params = lm_quant.dequantize_params(lm_quant.quantize_params(params))
+    return params
+
+
+def lm_prompts(cfg, dims, batch: int, length: int, gen: torch.Generator,
+               device) -> dict:
+    """Random prompts from ``gen``: token ids, or bf16 frame embeddings
+    for the archs whose front end is a stub."""
+    if cfg.frontend == "text":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (batch, length),
+                                        generator=gen).to(device)}
+    return {"embeds": torch.randn((batch, length, dims.d_model), generator=gen
+                                  ).to(device, torch.bfloat16)}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def lm_steps(cfg, dims, params, batch: dict, tokens: int, opts=None,
+             gen: torch.Generator = None, feed=None):
+    """Prefill ``batch``, then ``tokens`` decode steps, each fed ``feed[i]``
+    if given, else the greedy token (an arch with an embedding front end:
+    fresh embeddings from ``gen``). Yields (logits, the input fed: None
+    for the prefill) step by step."""
+    from repro_torch.launch.steps import (StepOptions, make_decode_step,
+                                          make_prefill_step)
+    inputs = batch.get("tokens", batch.get("embeds"))
+    b, s = inputs.shape[:2]
+    prefill = make_prefill_step(cfg, dims, opts or StepOptions(),
+                                s_max=s + tokens)
+    decode = make_decode_step(cfg, dims)
+    logits, cache = prefill(params, batch)
+    yield logits, None
+    for i in range(tokens):
+        if feed is not None:
+            inp = feed[i].to(inputs.device)
+        elif cfg.frontend == "text":
+            inp = torch.argmax(logits, dim=-1)[:, None]
+        else:
+            inp = lm_prompts(cfg, dims, b, 1, gen, inputs.device
+                             )["embeds"].to(inputs.dtype)
+        logits, cache = decode(params, cache, inp, s + i)
+        yield logits, inp
+
+
+def generate(cfg, dims, params, batch: dict, tokens: int, opts=None,
+             gen: torch.Generator = None):
+    """``lm_steps`` timed: (greedy tokens [B, tokens + 1], prefill seconds,
+    decode seconds), each clock stopped after a sync."""
+    device = batch.get("tokens", batch.get("embeds")).device
+    steps = lm_steps(cfg, dims, params, batch, tokens, opts, gen)
+    t0 = time.perf_counter()
+    logits, _ = next(steps)
+    _sync(device)
+    t_pre = time.perf_counter() - t0
+    out = [torch.argmax(logits, dim=-1)]
+    t0 = time.perf_counter()
+    for logits, _ in steps:
+        out.append(torch.argmax(logits, dim=-1))
+    _sync(device)
+    t_dec = time.perf_counter() - t0
+    return torch.stack(out, dim=1), t_pre, t_dec
+
+
+def serve_lm(args) -> int:
+    """The architecture server (``--lm-legacy``): seeded weights, seeded
+    prompts, one prefill and ``--tokens`` greedy decode steps."""
+    from repro_torch.nn.dims import compute_dims
+    device = resolve_device(args.device)
+    cfg = lm_arch_config(args)
+    dims = compute_dims(cfg, tp=1)
+    params = lm_arch_params(cfg, dims, device, w8=args.w8)
+    b, s = args.batch, args.prompt_len or DEFAULT_PROMPT_LEN
+    gen = torch.Generator().manual_seed(7)
+    batch = lm_prompts(cfg, dims, b, s, gen, device)
+    out, t_pre, t_dec = generate(cfg, dims, params, batch, args.tokens,
+                                 gen=gen)
+    print(f"[lm] prefill {b}x{s}: {t_pre*1e3:.1f} ms  "
+          f"({b*s/t_pre:.0f} tok/s)")
+    print(f"[lm] decode {args.tokens} steps: {t_dec*1e3:.1f} ms  "
+          f"({b*args.tokens/max(t_dec, 1e-12):.1f} tok/s)")
+    print(f"[lm] sample continuation: {out[0, :16].tolist()}")
+    return 0
+
+
 def trace_demo(args) -> int:
     """The torch.fx front-end demo: trace the cloud-mask CNN (never hand
     built) and serve it end to end; exit code 1 unless every request was
@@ -376,6 +512,28 @@ def parser() -> argparse.ArgumentParser:
                     help="--mode lm: new tokens per request")
     ap.add_argument("--slots", type=int, default=4,
                     help="--mode lm: KV-cache slots (the top prefill rung)")
+    ap.add_argument("--lm-compiled", dest="lm_compiled", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="--mode lm: serve the decoder-block op graph "
+                         "through the compiled prefill/decode rung ladder "
+                         "with int8 KV-cache slots; --lm-legacy selects "
+                         "the architecture server")
+    ap.add_argument("--lm-legacy", dest="lm_compiled", action="store_false",
+                    help="--mode lm: serve an --arch config with the "
+                         "prefill/decode steps (--batch prompts)")
+    ap.add_argument("--arch", default=None,
+                    help=f"--lm-legacy: architecture (default "
+                         f"{DEFAULT_ARCH}; configs/)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--lm-legacy: the arch's reduced config")
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help=f"--lm-legacy: prompt tokens (default "
+                         f"{DEFAULT_PROMPT_LEN})")
+    ap.add_argument("--kv8", action="store_true",
+                    help="--lm-legacy: int8 KV cache")
+    ap.add_argument("--w8", action="store_true",
+                    help="--lm-legacy: int8 per-tensor PTQ weights, served "
+                         "dequantized")
     ap.add_argument("--batch", type=int, default=16,
                     help="top batch-ladder rung")
     ap.add_argument("--rate", type=float, default=256.0,
@@ -467,10 +625,11 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
+    check_lm_flags(args)
     if args.trace_demo:
         return trace_demo(args)
     if args.mode == "lm":
-        return serve_lm_compiled(args)
+        return serve_lm_compiled(args) if args.lm_compiled else serve_lm(args)
     return serve_space(args)
 
 

@@ -1,0 +1,138 @@
+"""Basic transformer layers: RMSNorm, SwiGLU MLP, embeddings, RoPE
+(src/repro/nn/layers.py).
+
+The reference's sharding hints (``constrain``, the sequence gather and
+the reduce-scatter down-projection) are the identity without a mesh; on
+one card they are dropped and each projection is its einsum.
+
+Rounding follows what the reference's compiled program computes. Where
+the reference widens a bf16 product or sum straight to fp32
+(``(x @ w).astype(float32)``, ``silu(h.astype(float32))``), its compiler
+folds the widening into the operation and the bf16 rounding never
+happens: :func:`dot_f32`, :func:`residual` and the fp32 sums in the
+layers keep those results in fp32 too. Every other bf16 result is rounded where the reference's source
+rounds it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn.dims import Dims
+from repro_torch.nn.params import ParamSpec
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with an fp32 result and no bf16 rounding: the products of
+    bf16 values are exact in fp32, the sums fp32. On the card the bf16
+    GEMM writes fp32 (``out_dtype``); on the CPU the operands widen."""
+    if x.dtype == w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda and w.ndim == 2:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    if x.is_cuda and x.ndim == w.ndim == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+            xf: torch.Tensor = None) -> torch.Tensor:
+    """``xf``: ``x``'s unrounded fp32 value where the caller has it (a
+    residual sum; see :func:`residual`)."""
+    xf = x.float() if xf is None else xf
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def residual(x: torch.Tensor, a: torch.Tensor):
+    """``x + a`` in ``x``'s dtype, and the same sum unrounded in fp32 for
+    the RMSNorm that reads it next: the reference's compiled program
+    widens that sum straight into the norm. One fp32 sum: its rounding
+    is the bf16 add's."""
+    xf = x.float() + a.float()
+    return xf.to(x.dtype), xf
+
+
+def norm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), ("embed",), init="ones")
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_spec(dims: Dims) -> dict:
+    d, f = dims.d_model, dims.d_ff
+    return {
+        "w_gate": ParamSpec((d, f), ("fsdp", "ffn")),
+        "w_up": ParamSpec((d, f), ("fsdp", "ffn")),
+        "w_down": ParamSpec((f, d), ("ffn", "fsdp")),
+    }
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor, gate_f32: bool = False) -> torch.Tensor:
+    """``silu(x @ w_gate) * (x @ w_up) @ w_down``, the silu in fp32.
+    ``gate_f32``: the gate product is not rounded to ``x``'s dtype (the
+    MoE experts' batched product, which the reference's compiled program
+    keeps in fp32)."""
+    h = dot_f32(x, w_gate) if gate_f32 else x @ w_gate
+    u = x @ w_up
+    h = F.silu(h.float()).to(x.dtype) * u
+    return h @ w_down
+
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+
+def embed_spec(dims: Dims, tie: bool) -> dict:
+    out = {"embedding": ParamSpec((dims.vocab, dims.d_model), ("vocab", "fsdp"))}
+    if not tie:
+        out["lm_head"] = ParamSpec((dims.d_model, dims.vocab), ("fsdp", "vocab"))
+    return out
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens]
+
+
+def lm_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embedding"].T
+    return x @ head
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # [head_dim//2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] (absolute token positions)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                    # [hd/2]
+    angles = positions[..., None].float() * freqs              # [B, S, hd/2]
+    cos = torch.cos(angles)[..., None, :]                      # [B, S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

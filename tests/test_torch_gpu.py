@@ -1113,3 +1113,101 @@ def test_card_qat_step_matches_cpu(cuda_device):
             err = (g_card[n][k].cpu() - want).abs().max()
             assert err <= 1e-3 * want.abs().max(), (n, k)
     assert g_card["logvar"]["w"].abs().max() > 0
+
+
+# ---------------------------------------------------------------------------
+# the large-model stack (configs/, nn/, launch/steps.py)
+# ---------------------------------------------------------------------------
+
+
+def _within_one_bf16_ulp(got, want, tol):
+    """Each element within one bf16 ulp of the larger magnitude, plus the
+    fp32 tolerance of the two computations (a value near zero can show
+    their fp32 difference beyond one of its ulps)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool(((g - w).abs() <= ulp + tol * (1.0 + w.abs())).all())
+
+
+@pytest.mark.parametrize("hkv", [8, 1])          # 1: 8:1 GQA, as tinyllama
+def test_flash_attention_bf16_kernel_returns_bf16(cuda_device, hkv):
+    g = torch.Generator().manual_seed(31)
+    q, k, v = (torch.randn((2, 300, h, 64), generator=g).to(
+        cuda_device, torch.bfloat16) for h in (8, hkv, hkv))
+    got = tflash.flash_attention(q, k, v, causal=True)
+    _within_one_bf16_ulp(got, tflash.flash_attention_plain(q, k, v, True),
+                         2e-5)
+
+
+def test_ssd_bf16_kernel_returns_bf16_and_an_fp32_state(cuda_device):
+    x, B_, C_, dt, A, st = _ssd_inputs(2, 600, 8, 64, 64, True, 33,
+                                       cuda_device)
+    x = x.to(torch.bfloat16)
+    y, fin = tssd.ssd(x, B_, C_, dt, A, st)
+    y_p, fin_p = tssd.ssd_plain(x, B_, C_, dt, A, st)
+    _within_one_bf16_ulp(y, y_p, 1e-4)
+    assert fin.dtype == torch.float32
+    torch.testing.assert_close(fin, fin_p, rtol=1e-4, atol=1e-4)
+
+
+ARCH_FAMILIES = ("tinyllama-1.1b", "qwen1.5-0.5b", "llama4-scout-17b-a16e",
+                 "mamba2-780m", "zamba2-1.2b", "musicgen-large")
+
+
+def _reduced_arch(arch):
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.nn.dims import compute_dims
+    cfg = reduced(get_arch(arch))
+    return cfg, compute_dims(cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ARCH_FAMILIES)
+def test_card_arch_forward_matches_cpu(cuda_device, arch, dtype):
+    """One reduced() forward per family through the flash path: fp32
+    logits within 1e-4 of max|logits|, bf16 within the 2e-2 bound."""
+    from repro_torch.launch import serve
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.params import tree_map
+    cfg, dims = _reduced_arch(arch)
+    cpu_p = model_lib.init_params(cfg, dims,
+                                  torch.Generator().manual_seed(1), "cpu")
+    if dtype == torch.float32:          # as served, the bf16 tree as built
+        cpu_p = tree_map(lambda a: a.float(), cpu_p)
+    card_p = tree_map(lambda a: a.to(cuda_device), cpu_p)
+    batch = serve.lm_prompts(cfg, dims, 2, 40,
+                             torch.Generator().manual_seed(2), "cpu")
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+    inp = batch.get("tokens", batch.get("embeds"))
+    want = model_lib.forward(cpu_p, inp, cfg, dims, attn_impl="pallas")
+    got = model_lib.forward(card_p, inp.to(cuda_device), cfg, dims,
+                            attn_impl="pallas").cpu()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert got.dtype == dtype and err <= tol, err
+
+
+def test_card_zamba2_prefill_launches_the_derived_kernels(cuda_device):
+    """A hybrid prefill launches one ssd per Mamba-2 layer and one flash
+    per application of the shared attention block; a decode step
+    neither."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import (StepOptions, make_decode_step,
+                                          make_prefill_step)
+    cfg, dims = _reduced_arch("zamba2-1.2b")
+    params = serve.lm_arch_params(cfg, dims, cuda_device)
+    batch = serve.lm_prompts(cfg, dims, 2, 64,
+                             torch.Generator().manual_seed(3), cuda_device)
+    kops.reset_launch_counts()
+    logits, cache = make_prefill_step(cfg, dims, StepOptions("pallas"),
+                                      s_max=65)(params, batch)
+    counts = kops.launch_counts()
+    assert counts["ssd"] == cfg.num_layers == 6
+    assert counts["flash_attention"] == cfg.num_attn_layers() == 3
+    make_decode_step(cfg, dims)(params, cache,
+                                torch.argmax(logits, -1)[:, None], 64)
+    assert kops.launch_counts() == counts

@@ -3,13 +3,17 @@
 * ``import repro_torch`` (every submodule) never loads ``jax``;
 * nothing in ``src/repro_torch`` or ``chip_smoke.py`` imports the JAX
   package ``repro``;
-* the six numpy-only modules the port copies, and the front-end's
-  ``frontend/ir.py``, equal their originals after the ``repro.`` ->
-  ``repro_torch.`` rewrite, so any drift is deliberate;
+* the six numpy-only modules the port copies, the front-end's
+  ``frontend/ir.py`` and the large-model configs (``configs/*.py``) equal
+  their originals after the ``repro.`` -> ``repro_torch.`` rewrite, so any
+  drift is deliberate;
 * entry points need a card unless the caller asks for the CPU, and
   ``chip_smoke.py`` fails (printing no verdict) without one;
-* the launcher accepts only the flags the ported slices support, and
-  serves fault storms, orbit radiation storms (ECC/TMR protection) and
+* the large-model stack's modules, and ``convert`` (which reads the
+  reference's bf16 arrays), load neither ``jax`` nor ``ml_dtypes``;
+* the launcher refuses the architecture server's flags outside ``--mode
+  lm --lm-legacy``, serves the architecture server, and serves fault
+  storms, orbit radiation storms (ECC/TMR protection) and
   checkpoint/restore on the CPU.
 """
 import ast
@@ -42,6 +46,15 @@ def _port_modules():
 LM_SLICE = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd",
             "repro_torch.core.lm_quant", "repro_torch.core.lm",
             "repro_torch.models.lm")
+ARCH_SLICE = ("repro_torch.configs", "repro_torch.configs.base",
+              "repro_torch.configs.arch_defs", "repro_torch.nn.params",
+              "repro_torch.nn.dims", "repro_torch.nn.layers",
+              "repro_torch.nn.attention", "repro_torch.nn.ssm",
+              "repro_torch.nn.moe", "repro_torch.nn.blocks",
+              "repro_torch.nn.model", "repro_torch.launch.steps",
+              "repro_torch.convert")
+CONFIGS = sorted(p.name for p in (ROOT / "src" / "repro" / "configs").glob(
+    "*.py"))
 FRONTEND_SLICE = ("repro_torch.frontend", "repro_torch.frontend.ir",
                   "repro_torch.frontend.ops", "repro_torch.frontend.trace",
                   "repro_torch.frontend.translators",
@@ -57,6 +70,7 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.core.scheduler" in mods and len(mods) >= 25
     assert set(LM_SLICE) <= set(mods)
     assert set(FRONTEND_SLICE) <= set(mods)
+    assert set(ARCH_SLICE) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -107,6 +121,28 @@ def test_the_frontend_qat_and_examples_alone_load_no_jax(mod):
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+@pytest.mark.parametrize("mod", ARCH_SLICE)
+def test_the_large_model_stack_alone_loads_no_jax_or_ml_dtypes(mod):
+    """Each module of the large-model slice imported on its own, in a
+    fresh process, loads neither jax, repro nor ml_dtypes (the card has
+    no ml_dtypes: ``convert`` reads bf16 arrays by their bits)."""
+    code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'repro', 'ml_dtypes')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, check=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_copied_configs_equal_their_originals(name):
+    orig = (ROOT / "src" / "repro" / "configs" / name).read_text()
+    port = (PORT / "configs" / name).read_text()
+    assert port == re.sub(r"\brepro\.", "repro_torch.", orig)
+
+
 def test_frontend_ir_equals_its_original():
     orig = (ROOT / "src" / "repro" / "frontend" / "ir.py").read_text()
     port = (PORT / "frontend" / "ir.py").read_text()
@@ -144,9 +180,27 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     ["--lm-legacy"], ["--prompt-len", "8"], ["--arch", "tinyllama-1.1b"],
     ["--kv8"], ["--w8"]])
 def test_launcher_refuses_unported_flags(flag, capsys):
+    """The architecture server's flags parse, and outside ``--mode lm
+    --lm-legacy`` (here: space mode) they are a usage error."""
+    serve.parser().parse_args(flag)
     with pytest.raises(SystemExit) as e:
-        serve.parser().parse_args(flag)
-    assert e.value.code == 2
+        serve.main(flag + ["--device", "cpu"])
+    assert "--mode lm --lm-legacy" in str(e.value)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--lm-legacy"], ["--prompt-len", "8"], ["--arch", "tinyllama-1.1b"],
+    ["--kv8"], ["--w8"]])
+def test_launcher_serves_the_arch_server_flags(flag, capsys):
+    """Each of those flags with ``--mode lm --lm-legacy --smoke`` serves
+    on the CPU and prints the reference's three lines."""
+    argv = ["--mode", "lm", "--lm-legacy", "--smoke", "--device", "cpu",
+            "--batch", "2", "--tokens", "3"] + flag
+    assert serve.main(argv) == 0
+    out = capsys.readouterr().out
+    s = 8 if "--prompt-len" in flag else 64
+    assert f"[lm] prefill 2x{s}:" in out and "[lm] decode 3 steps:" in out
+    assert "[lm] sample continuation: [" in out
 
 
 def test_lm_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

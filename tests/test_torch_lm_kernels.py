@@ -10,7 +10,11 @@ tests run them. Tolerances are the reference's own:
   (tests/test_ssd_kernel.py): both run the same chunked algorithm, and
   sum in different orders;
 * ``quantize_kv`` / ``dequantize_kv``: bit-exact against the reference as
-  its serving path runs them (compiled).
+  its serving path runs them (compiled);
+* bf16 inputs: both kernels return the input's dtype (the final SSD state
+  stays fp32), each element within one bf16 ulp of the reference's
+  (both compute in fp32 and round once; a last-bit fp32 difference can
+  move that rounding by one ulp).
 
 The CUDA kernels run only on the card (``-m gpu``, tests/test_torch_gpu.py).
 """
@@ -33,6 +37,22 @@ from repro_torch.kernels import ssd as tssd
 
 def _np(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
+
+
+def _bf16(a):
+    """The same bf16 values in both packages (both round to nearest
+    even)."""
+    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).bfloat16()
+
+
+def assert_within_one_bf16_ulp(got: torch.Tensor, want) -> None:
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    g = got.float().numpy()
+    w = np.asarray(want.astype(jnp.float32))
+    assert g.shape == w.shape
+    mag = np.maximum(np.maximum(np.abs(g), np.abs(w)), np.float32(2 ** -126))
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    assert np.all(np.abs(g - w) <= ulp), float(np.max(np.abs(g - w) / ulp))
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +94,16 @@ def test_flash_attention_plain_unequal_lengths(sq, sk):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("hq,hkv,s", [(4, 2, 37), (2, 2, 64)])
+def test_flash_attention_bf16_returns_bf16(hq, hkv, s):
+    rng = np.random.default_rng(s + hq)
+    (qj, qt), (kj, kt), (vj, vt) = (_bf16(_np(rng, 2, s, h, 16))
+                                    for h in (hq, hkv, hkv))
+    want = jops.flash_attention(qj, kj, vj, causal=True, bq=32, bk=32)
+    got = tops.flash_attention(qt, kt, vt, causal=True, bq=32, bk=32)
+    assert_within_one_bf16_ulp(got, want)
+
+
 def test_flash_attention_rejects_bad_operands():
     q = torch.zeros((1, 4, 3, 8))
     with pytest.raises(ValueError, match="multiple of Hkv"):
@@ -111,6 +141,21 @@ def test_ssd_plain_matches_reference(s, chunk, init):
                       chunk=chunk)
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-4,
                                atol=1e-4)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (37, 256)])
+def test_ssd_bf16_returns_bf16_and_an_fp32_state(s, chunk):
+    rng = np.random.default_rng(s)
+    x, B_, C_, dt, A, st = _ssd_inputs(rng, 2, s, 3, 8, 16, True)
+    (xj, xt), (bj, bt), (cj, ct) = (_bf16(a) for a in (x, B_, C_))
+    yj, fj = jops.ssd(xj, bj, cj, jnp.asarray(dt), jnp.asarray(A),
+                      jnp.asarray(st), chunk=chunk)
+    yt, ft = tops.ssd(xt, bt, ct, torch.from_numpy(dt), torch.from_numpy(A),
+                      torch.from_numpy(st), chunk=chunk)
+    assert_within_one_bf16_ulp(yt, yj)
+    assert ft.dtype == torch.float32 and fj.dtype == jnp.float32
     np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-4,
                                atol=1e-4)
 

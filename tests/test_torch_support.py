@@ -155,6 +155,152 @@ def storm(side, engines, names, n, upsets=(), stop_at=None, serve=True,
 
 
 # ---------------------------------------------------------------------------
+# the large-model stack (configs/, nn/, launch/steps.py)
+# ---------------------------------------------------------------------------
+
+# one reduced() config per family and feature, plus a hybrid with a tail:
+# name -> (arch, num_layers override or None)
+ARCH_CASES = {
+    "dense": ("tinyllama-1.1b", None),
+    "qkv_bias": ("qwen1.5-0.5b", None),
+    "moe": ("llama4-scout-17b-a16e", None),
+    "ssm": ("mamba2-780m", None),
+    "hybrid": ("zamba2-1.2b", None),
+    "embed": ("musicgen-large", None),
+    "hybrid_tail": ("zamba2-1.2b", 5),      # 2 groups of 2 + 1 tail layer
+}
+ATTENDING = ("dense", "qkv_bias", "moe", "hybrid", "embed", "hybrid_tail")
+
+
+def arch_twin_cfgs(case, kv_quant=False):
+    """``(jax cfg, jax dims, port cfg, port dims)`` of an ``ARCH_CASES``
+    entry."""
+    import dataclasses
+    from repro.configs import get_arch as j_get, reduced as j_reduced
+    from repro.nn.dims import compute_dims as j_dims
+    from repro_torch.configs import get_arch as t_get, reduced as t_reduced
+    from repro_torch.nn.dims import compute_dims as t_dims
+    arch, layers = ARCH_CASES[case]
+    over = {"kv_quant": kv_quant}
+    if layers:
+        over["num_layers"] = layers
+    jc = dataclasses.replace(j_reduced(j_get(arch)), **over)
+    tc = dataclasses.replace(t_reduced(t_get(arch)), **over)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    return jc, j_dims(jc), tc, t_dims(tc)
+
+
+def arch_twin_params(jc, jd, dtype="bf16", key=0):
+    """The reference's ``init_params`` (bf16; ``dtype="f32"`` casts every
+    leaf), and the same values as the port's tree on the CPU."""
+    import jax.numpy as jnp
+    from repro.nn import model as j_model
+    from repro_torch.convert import tree_from_numpy
+    jp = j_model.init_params(jc, jd, jax.random.PRNGKey(key))
+    if dtype == "f32":
+        jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    return jp, tree_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def arch_inputs(jc, jd, b, s, dtype="bf16", seed=0):
+    """``(jax batch, port batch)``: token ids, or frame embeddings (fp32
+    values, bf16 unless ``dtype="f32"``) for an embedding front end, from
+    a numpy seed; ``s`` positions each."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+    if jc.frontend == "text":
+        toks = rng.integers(0, jc.vocab_size, (b, s)).astype(np.int32)
+        return ({"tokens": jnp.asarray(toks)},
+                {"tokens": torch.from_numpy(toks).long()})
+    emb = rng.standard_normal((b, s, jd.d_model)).astype(np.float32)
+    if dtype == "f32":
+        return {"embeds": jnp.asarray(emb)}, {"embeds": torch.from_numpy(emb)}
+    return ({"embeds": jnp.asarray(emb, jnp.bfloat16)},
+            {"embeds": torch.from_numpy(emb).bfloat16()})
+
+
+def as_f32(a) -> np.ndarray:
+    """A jax array or a tensor as float32 numpy (bf16 widened)."""
+    if isinstance(a, torch.Tensor):                  # a copy: caches change
+        return a.float().numpy().copy()
+    return np.asarray(a.astype("float32") if a.dtype.name == "bfloat16"
+                      else a, np.float32)
+
+
+ARCH_B, ARCH_S, ARCH_STEPS = 2, 40, 4
+
+
+def arch_run_both(case, dtype, impl, kv_quant=False):
+    """Both packages on the same params and inputs (``ARCH_B`` rows):
+    the ``train``-mode logits of the first ``ARCH_S`` positions, the
+    prefill step's next-token logits and cache (capacity ``ARCH_S +
+    ARCH_STEPS``), and ``ARCH_STEPS`` decode steps fed the inputs' next
+    positions (so both sides see the same tokens). The reference's steps
+    run through ``jax.jit``, as its launcher runs them. Returns
+    ``{"jax"|"torch": {"train", "prefill", "cache" (fp32 numpy copies of
+    the prefill cache's leaves, sorted-key order), "decode": [...],
+    "cache_after"}}``."""
+    import jax.numpy as jnp
+    from repro.launch import steps as j_steps
+    from repro.nn import model as j_model
+    from repro_torch.launch import steps as t_steps
+    from repro_torch.nn import model as t_model
+    from repro_torch.nn.params import tree_leaves
+    jc, jd, tc, td = arch_twin_cfgs(case, kv_quant)
+    jp, tp = arch_twin_params(jc, jd, dtype)
+    jb, tb = arch_inputs(jc, jd, ARCH_B, ARCH_S + ARCH_STEPS, dtype)
+    key = "tokens" if jc.frontend == "text" else "embeds"
+    s, s_max = ARCH_S, ARCH_S + ARCH_STEPS
+    out = {}
+
+    jx = jb[key]
+    j_fwd = jax.jit(lambda p, x: j_model.forward(
+        p, x, jc, jd, mode="train", attn_impl=impl, remat=False))
+    j_pre = jax.jit(j_steps.make_prefill_step(
+        jc, jd, j_steps.StepOptions(attn_impl=impl), s_max=s_max))
+    j_dec = jax.jit(j_steps.make_decode_step(jc, jd))
+    logits, cache = j_pre(jp, {key: jx[:, :s]})
+    res = {"train": j_fwd(jp, jx[:, :s]), "prefill": logits,
+           "cache": [as_f32(a) for a in jax.tree.leaves(cache)],
+           "decode": []}
+    for i in range(ARCH_STEPS):
+        logits, cache = j_dec(jp, cache, jx[:, s + i:s + i + 1],
+                              jnp.int32(s + i))
+        res["decode"].append(logits)
+    res["cache_after"] = cache
+    out["jax"] = res
+
+    tx = tb[key]
+    t_pre = t_steps.make_prefill_step(
+        tc, td, t_steps.StepOptions(attn_impl=impl), s_max=s_max)
+    t_dec = t_steps.make_decode_step(tc, td)
+    logits, cache = t_pre(tp, {key: tx[:, :s]})
+    res = {"train": t_model.forward(tp, tx[:, :s], tc, td, attn_impl=impl),
+           "prefill": logits,
+           "cache": [as_f32(a) for a in tree_leaves(cache)], "decode": []}
+    for i in range(ARCH_STEPS):
+        logits, cache = t_dec(tp, cache, tx[:, s + i:s + i + 1], s + i)
+        res["decode"].append(logits)
+    res["cache_after"] = cache
+    out["torch"] = res
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = as_f32(want)
+    return float(np.max(np.abs(as_f32(got) - want)) / np.max(np.abs(want)))
+
+
+def logit_errors(out) -> list:
+    """``rel_err`` of the train, prefill and each decode step's logits."""
+    j, t = out["jax"], out["torch"]
+    return ([rel_err(t["train"], j["train"]),
+             rel_err(t["prefill"], j["prefill"])]
+            + [rel_err(a, b) for a, b in zip(t["decode"], j["decode"])])
+
+
+# ---------------------------------------------------------------------------
 # checks of the helpers
 # ---------------------------------------------------------------------------
 
