@@ -80,7 +80,24 @@ functions:
   bf16), and the prefill and decode-step wall, device busy, idle share
   and tok/s. flash and ``ssd`` also take bf16 inputs at their served
   shapes in their own phases: bf16 out, within one bf16 ulp of the plain
-  version (plus the fp32 tolerance where a value near zero needs it).
+  version (plus the fp32 tolerance where a value near zero needs it);
+* training (``train_path``): one train step (``launch/steps.py``) of the
+  reduced dense, ``qkv_bias``, MoE and embedding configs on the card
+  against the port on the CPU from the same state (fp32: loss to 1e-5
+  relative, every grad leaf to 1e-4 of its max; bf16: loss to 2e-2),
+  microbatch 2 against the full batch to the reference's bounds, and
+  remat off/"nothing"/"dots" with equal losses; the train steps that
+  would differentiate through ``ssd`` (the SSM and hybrid configs) or
+  flash (``attn_impl="pallas"``) raise, as the reference's ``jax.grad``
+  through its Pallas kernels fails; the reduced tinyllama learns the
+  synthetic task (30 steps, the loss falls by more than 0.3); the
+  launcher crashes, commits, resumes in a new process and its resumed
+  losses equal an uninterrupted run's (held to two uninterrupted runs'
+  own spread); then tinyllama-1.1b at full width in bf16, global batch 8
+  x 4096 positions in 4 microbatches, remat "nothing", 6 AdamW steps,
+  with zero hand-written kernel launches, the step wall, tokens/s, peak
+  memory, the AdamW update's share and one profiled step's device busy
+  and idle share.
 
 Besides the kernels those paths run, the fp32 ``conv2d`` (on no served
 path, as in the reference) is held against its plain version and timed
@@ -178,6 +195,26 @@ LM_ARCH_BF16_GAP_RATIO = 1.0
 LM_ARCH_FULL = (("zamba2-1.2b", 4, 2048, 16, False),
                 ("tinyllama-1.1b", 4, 512, 16, False))
 LM_ARCH_KERNELS = ("flash_attention", "ssd")
+# train_path: the train step (launch/steps.py), AdamW, the launcher. Card
+# vs the CPU port on these reduced configs, one step from the same seeded
+# state (B=2, 32 positions): fp32 loss within 1e-5 relative and every grad
+# leaf within 1e-4 of its max|g| (TF32 off), bf16 loss within 2e-2
+TRAIN_CASES = ("dense", "qkv_bias", "moe", "embed")
+TRAIN_B, TRAIN_S = 2, 32
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# the train steps that differentiate through a kernel without a gradient
+# (ssd on the card; flash under attn_impl="pallas"): each must raise
+TRAIN_REFUSED = (("ssm", "chunked"), ("hybrid", "chunked"),
+                 ("hybrid_tail", "chunked"), ("dense", "pallas"))
+# full width: tinyllama-1.1b in bf16 at train_4k's 4096 positions, global
+# batch cut from 256 to 8, 4 microbatches, remat "nothing", 6 AdamW steps
+# on the launcher's cosine schedule, the chunked attention, no checkpoint
+TRAIN_FULL = ("tinyllama-1.1b", 8, 4096, 4, 6)
+# the reckoning of the full-width step's peak (PERF.md): state ~22 GB
+# (bf16 params and grads, the fp32 accumulator, m, v and master) plus a
+# microbatch's live activations
+TRAIN_PEAK_GB = (27.0, 32.0)
 # the kernels each served path must launch
 CNN_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply")
 LM_KERNELS = ("int8_matmul", "quantize_apply", "flash_attention", "ssd")
@@ -1997,6 +2034,317 @@ def _lm_arch_times(torch, cfg, dims, params, batch, s, n_tok, dev, arch):
               f"{n / wall:.1f} tok/s  [{gpu}]")
 
 
+# ---------------------------------------------------------------------------
+# train_path: the train step, AdamW and the launcher (launch/steps.py,
+# optim/, checkpoint/, launch/train.py)
+# ---------------------------------------------------------------------------
+
+
+def _train_batch(torch, cfg, dims, b, s, seed, dtype):
+    """Seeded prompts (``serve.lm_prompts``) in ``dtype`` and labels."""
+    from repro_torch.launch import serve
+    batch = serve.lm_prompts(cfg, dims, b, s,
+                             torch.Generator().manual_seed(seed), "cpu")
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+    batch["labels"] = torch.randint(
+        0, cfg.vocab_size, (b, s), generator=torch.Generator().manual_seed(
+            seed + 1))
+    return batch
+
+
+def _train_step_on(torch, cfg, dims, params, batch, device, opts):
+    """One train step from ``params`` (a CPU tree, copied) on ``device``:
+    (loss, [grads], metrics). The grads come from the step's own loss
+    function; the step updates a copy of the state."""
+    from repro_torch.launch.steps import (TrainState, make_loss_fn,
+                                          make_train_step)
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.optim.adamw import AdamW
+    p = tree_map(lambda a: a.to(device, copy=True), params)
+    b = {k: v.to(device) for k, v in batch.items()}
+    leaves = tree_map(lambda a: a.detach().requires_grad_(True), p)
+    loss = make_loss_fn(cfg, dims, opts)(leaves, b)
+    grads = torch.autograd.grad(loss, tree_leaves(leaves),
+                                materialize_grads=True)
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(cfg, dims, opt, opts)
+    state, m = step(TrainState(p, opt.init(p)), b)
+    _sync(torch, device)
+    return (float(loss.detach()), [g.float().cpu() for g in grads],
+            {k: float(v) for k, v in m.items()}, state)
+
+
+@phase("train_path: one train step of the reduced dense, qkv_bias, moe and "
+       "embed configs on the card against the port on the CPU (fp32, bf16), "
+       "microbatch 2 against the full batch, remat nothing/dots/off")
+def train_card_vs_cpu_phase(torch, device="cuda"):
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.params import tree_leaves, tree_map
+    worst = {}
+    for case in TRAIN_CASES:
+        arch, layers = LM_ARCH_CASES[case]
+        cfg, dims = _arch_cfg(arch, layers)
+        p_bf16 = model_lib.init_params(cfg, dims,
+                                       torch.Generator().manual_seed(5), "cpu")
+        for dtype in (torch.float32, torch.bfloat16):
+            params = tree_map(lambda a: a.to(dtype), p_bf16)
+            batch = _train_batch(torch, cfg, dims, TRAIN_B, TRAIN_S, 6, dtype)
+            card = _train_step_on(torch, cfg, dims, params, batch, device,
+                                  StepOptions())
+            cpu = _train_step_on(torch, cfg, dims, params, batch, "cpu",
+                                 StepOptions())
+            loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+            if dtype == torch.float32:
+                grad_err = max(float((g - w).abs().max() / w.abs().max())
+                               for g, w in zip(card[1], cpu[1])
+                               if float(w.abs().max()) > 0)
+                print(f"   {case} fp32: loss {card[0]:.6f} rel err "
+                      f"{loss_err:.3g} (tolerance {TRAIN_LOSS_RTOL}); grads "
+                      f"max err / leaf max {grad_err:.3g} (tolerance "
+                      f"{TRAIN_GRAD_TOL}); grad norm card "
+                      f"{card[2]['grad_norm']:.6f} cpu "
+                      f"{cpu[2]['grad_norm']:.6f}")
+                assert loss_err <= TRAIN_LOSS_RTOL, (case, loss_err)
+                assert grad_err <= TRAIN_GRAD_TOL, (case, grad_err)
+                worst[case] = (loss_err, grad_err)
+                continue
+            print(f"   {case} bf16: loss card {card[2]['loss']:.5f} cpu "
+                  f"{cpu[2]['loss']:.5f}, rel err {loss_err:.3g} (tolerance "
+                  f"{LM_ARCH_BF16_TOL})")
+            assert loss_err <= LM_ARCH_BF16_TOL, (case, loss_err)
+            # microbatching and remat, on the card, in bf16
+            full_state = card[3]
+            micro = _train_step_on(torch, cfg, dims, params, batch, device,
+                                   StepOptions(microbatch=2))
+            l_full = tree_leaves(full_state.params)[0].float().cpu()
+            l_micro = tree_leaves(micro[3].params)[0].float().cpu()
+            gap = abs(card[2]["loss"] - micro[2]["loss"])
+            print(f"   {case} bf16 microbatch 2 vs full batch: loss gap "
+                  f"{gap:.3g} (bound 5e-2), first leaf max |diff| "
+                  f"{float((l_full - l_micro).abs().max()):.3g} (atol 5e-2 "
+                  f"+ rtol 0.2)")
+            assert gap < 5e-2
+            torch.testing.assert_close(l_micro, l_full, atol=5e-2, rtol=0.2)
+            losses = [_train_step_on(torch, cfg, dims, params, batch, device,
+                                     StepOptions(remat=r, remat_policy=pol)
+                                     )[0]
+                      for r, pol in ((False, "nothing"), (True, "nothing"),
+                                     (True, "dots"))]
+            print(f"   {case} bf16 remat off / nothing / dots: losses "
+                  f"{losses}")
+            assert losses[0] == losses[1] == losses[2], losses
+    return worst
+
+
+@phase("train_path: train steps that would differentiate through ssd (ssm, "
+       "hybrid, hybrid with a tail) or flash (dense under pallas) on the card "
+       "raise")
+def train_refusal_phase(torch, device="cuda"):
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.nn import model as model_lib
+    from repro_torch.kernels import ops
+    for case, impl in TRAIN_REFUSED:
+        arch, layers = LM_ARCH_CASES[case]
+        cfg, dims = _arch_cfg(arch, layers)
+        params = model_lib.init_params(cfg, dims,
+                                       torch.Generator().manual_seed(5), "cpu")
+        batch = _train_batch(torch, cfg, dims, TRAIN_B, TRAIN_S, 6,
+                             torch.bfloat16)
+        ops.reset_launch_counts()
+        try:
+            _train_step_on(torch, cfg, dims, params, batch, device,
+                           StepOptions(attn_impl=impl))
+        except RuntimeError as e:
+            if "the kernel has no gradient" not in str(e):
+                raise
+            print(f"   {case} ({impl}): refused: {str(e)[:78]}...")
+            assert sum(ops.launch_counts().values()) == 0
+            continue
+        raise AssertionError(f"{case} ({impl}): a train step through a "
+                             f"kernel without a gradient returned")
+
+
+@phase("train_path: tinyllama-1.1b's reduced config learns the synthetic "
+       "task on the card (30 steps, lr 3e-3)")
+def train_learning_phase(torch, device="cuda"):
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.nn import model as model_lib
+    from repro_torch.optim.adamw import AdamW
+    cfg, dims = _arch_cfg("tinyllama-1.1b")
+    params = model_lib.init_params(cfg, dims,
+                                   torch.Generator().manual_seed(0), device)
+    opt = AdamW(lr=3e-3)
+    state = TrainState(params, opt.init(params))
+    step = make_train_step(cfg, dims, opt)
+    shape = ShapeSpec("tiny", 64, 8, "train")
+    losses = []
+    for i in range(30):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in
+                 synthetic_batch(i, cfg, dims, shape, DataConfig()).items()}
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    print(f"   losses at steps 1, 11, 21, 30: "
+          f"{[round(x, 4) for x in losses[::10] + losses[-1:]]}; fall "
+          f"{losses[0] - losses[-1]:.4f} (must exceed 0.3)")
+    assert losses[-1] < losses[0] - 0.3, losses
+
+
+def _launcher(argv):
+    """``python -m repro_torch.launch.train ARGV`` in a new process."""
+    import os
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           *argv], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(SRC)),
+                          timeout=300)
+
+
+@phase("train_path: the launcher crashes entering step 6 (qwen1.5-0.5b "
+       "--smoke), commits step 5; a new process resumes to step 15; the "
+       "resumed losses against an uninterrupted run's")
+def train_resume_phase(torch, tmp: Path):
+    import os
+    from repro_torch.checkpoint.checkpoint import latest_step
+    from repro_torch.launch import train as tl
+    ckpt, resumed = tmp / "ckpt", tmp / "resumed.jsonl"
+    base = ["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "10", "--batch",
+            "2", "--seq", "16", "--log-every", "100"]
+    argv = base + ["--ckpt-dir", str(ckpt), "--metrics-out", str(resumed)]
+    os.environ["REPRO_CRASH_AT_STEP"] = "6"
+    try:
+        tl.main(argv + ["--save-every", "2"])
+        raise AssertionError("the launcher did not crash at step 6")
+    except RuntimeError as e:
+        assert "simulated node failure at step 6" in str(e), e
+    finally:
+        del os.environ["REPRO_CRASH_AT_STEP"]
+    assert latest_step(str(ckpt)) == 5
+    again = _launcher(argv + ["--save-every", "5"])
+    assert again.returncode == 0, again.stdout + again.stderr
+    assert "[resume] restoring step 5" in again.stdout
+    assert "[done] trained to step 15" in again.stdout, again.stdout
+    assert latest_step(str(ckpt)) == 15
+    runs = []
+    for i in range(2):                 # the same run twice: its own spread
+        out = tmp / f"straight{i}.jsonl"
+        assert tl.main(base + ["--metrics-out", str(out)]) == 0
+        runs.append(out)
+    read = lambda p: {r["step"]: r["loss"] for r in
+                      map(json.loads, p.read_text().splitlines())}
+    got, a, b = read(resumed), read(runs[0]), read(runs[1])
+    after = range(6, 11)
+    spread = max(abs(a[k] - b[k]) for k in a)
+    gap = max(abs(got[k] - a[k]) for k in after)
+    print(f"   resumed steps 6-10 vs an uninterrupted run: max |loss diff| "
+          f"{gap!r}; two uninterrupted runs: {spread!r} "
+          f"({'bit for bit' if gap == spread == 0 else 'within the spread'})")
+    print(f"   losses 6-10: resumed {[got[k] for k in after]}")
+    assert gap <= spread, (gap, spread)
+
+
+@phase("main path: train_path: tinyllama-1.1b at full width in bf16, global "
+       "batch 8 x 4096 positions in 4 microbatches, remat nothing, 6 AdamW "
+       "steps through the train step")
+def train_full_width_phase(torch, device="cuda"):
+    """Every count set to 0 just before the steps and read just after: the
+    chunked attention and the library GEMMs launch no hand-written
+    kernel. The step wall and the AdamW update's share of it from the
+    steps between the first and the last; the last step profiled (device
+    busy, idle share, the largest device items)."""
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (StepOptions, TrainState,
+                                          make_train_step)
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.params import tree_leaves
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    arch, b, s, micro, n_steps = TRAIN_FULL
+    cfg, dims = _arch_cfg(arch, smoke=False)
+    dev = torch.device(device)
+    shape = SHAPES_BY_NAME["train_4k"]
+    assert shape.seq_len == s
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, dims,
+                                   torch.Generator().manual_seed(0), dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    adamw = AdamW(lr=cosine_schedule(3e-4, warmup=20, total=100))
+    timed = {"update": []}
+
+    class TimedAdamW:                    # the update's wall, synced
+        def update(self, grads, state, params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = adamw.update(grads, state, params)
+            torch.cuda.synchronize()
+            timed["update"].append(time.perf_counter() - t0)
+            return out
+
+    step = make_train_step(cfg, dims, TimedAdamW(),
+                           StepOptions(remat=True, remat_policy="nothing",
+                                       microbatch=micro))
+    state = TrainState(params, adamw.init(params))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        i, cfg, dims, shape, DataConfig(), batch_override=b).items()}
+        for i in range(n_steps)]
+    from torch.profiler import ProfilerActivity, profile
+    ops.reset_launch_counts()
+    walls, losses, prof = [], [], None
+    for i in range(n_steps):
+        last = i == n_steps - 1         # the last step profiled
+        with (profile(activities=[ProfilerActivity.CUDA]) if last
+              else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    counts = counts_with_routes(ops)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"   {arch}: {n_params / 1e9:.3f} B params; launches over the "
+          f"{n_steps} steps: {counts}")
+    assert all(v == 0 for v in counts.values()), counts
+    assert all(math.isfinite(x) for x in losses), losses
+    print(f"   losses {[round(x, 4) for x in losses]}")
+    warm = walls[1:-1]                  # neither the first nor the profiled
+    wall = sum(warm) / len(warm)
+    upd = sum(timed["update"][1:-1]) / len(warm)
+    gpu = gpu_line()
+    print(f"   step wall {wall * 1e3:.1f} ms (steps 2-{n_steps - 1}; the "
+          f"first {walls[0] * 1e3:.1f} ms), {b * s / wall:.1f} tokens/s, "
+          f"AdamW update {upd * 1e3:.2f} ms = {upd / wall:.4f} of the step"
+          f"  [{gpu}]")
+    print(f"   peak memory {peak:.2f} GB (max_memory_allocated; reckoned "
+          f"{TRAIN_PEAK_GB[0]}-{TRAIN_PEAK_GB[1]} GB of 80)")
+    t0 = time.perf_counter()
+    rows = device_rows(torch, prof)
+    busy = sum(r[0] for r in rows) * 1e-6
+    # the tracer slows the host's launches: idle share against both walls
+    print(f"   profiled step {n_steps}: device busy {busy * 1e3:.1f} ms; idle "
+          f"share {1 - busy / wall:.4f} of the unprofiled step wall, "
+          f"{1 - busy / walls[-1]:.4f} of its own {walls[-1] * 1e3:.1f} ms "
+          f"(the profile read in {time.perf_counter() - t0:.1f} s)  [{gpu}]")
+    for dev_us, count, key in rows[:12]:
+        print(f"   {dev_us / 1e3:9.2f} ms  x{count:<6d} {key[:70]}")
+    kinds = {}
+    for dev_us, _, key in rows:
+        k = key.lower()
+        kind = ("GEMM" if any(w in k for w in ("nvjet", "gemm", "cutlass",
+                                                "xmma")) else
+                "softmax" if "softmax" in k else
+                "copy (casts)" if "copy" in k else
+                "reduction" if "reduce" in k else "other elementwise")
+        kinds[kind] = kinds.get(kind, 0.0) + dev_us / 1e3
+    print("   device ms by kind: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(kinds.items(),
+                                           key=lambda kv: -kv[1])))
+    return counts
+
+
 @phase("main path: serve cnet_plus_scalar (full width) on accel with "
        "--autotune --tuning-cache, then a second engine over the warm cache")
 def tuned_serve_phase(torch, sched0, cache_path):
@@ -2966,6 +3314,18 @@ def main() -> int:
         if counts is not None:
             paths["lm_arch"] = (LM_ARCH_KERNELS, counts)
         torch.cuda.empty_cache()
+        train_card_vs_cpu_phase(torch)
+        train_refusal_phase(torch)
+        train_learning_phase(torch)
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+        try:
+            train_resume_phase(torch, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        counts = train_full_width_phase(torch)
+        if counts is not None:          # no hand-written kernel on this path
+            paths["train_path"] = ((), counts)
+        torch.cuda.empty_cache()
         counts = fault_path(torch)
         if counts is not None:
             paths["fault_phase"] = (FAULT_KERNELS, counts)
@@ -2984,7 +3344,7 @@ def main() -> int:
         counts = examples_phase(torch)
         if counts is not None:
             paths["examples"] = (EXAMPLE_KERNELS, counts)
-        if len(paths) != 9 + len(SPACE_MODELS):
+        if len(paths) != 10 + len(SPACE_MODELS):
             FAILURES.append("a served path failed")
         for path, (names, counts) in paths.items():
             print(f"launches on the {path} path: {counts}")

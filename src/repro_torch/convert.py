@@ -4,7 +4,8 @@ The reference package and the port draw different random numbers from
 the same seed, so anything both must compute on — parameters, calibration
 state — is handed over as numpy arrays. Layouts stay the reference's:
 HWIO conv weights, [K, N] dense weights; the large-model stack's param and
-cache trees keep the reference's nested keys and stacked layer dims.
+cache trees keep the reference's nested keys and stacked layer dims, and
+its train state the reference's ``TrainState(params, AdamWState)``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.steps import TrainState
+from repro_torch.optim.adamw import AdamWState
 
 
 @dataclasses.dataclass
@@ -64,3 +67,14 @@ def tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
         bits = np.ascontiguousarray(a).view(np.uint16).copy()
         return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
     return _tensor(a, dev)
+
+
+def train_state_from_numpy(state: Any, device: DeviceLike = None
+                           ) -> TrainState:
+    """The reference's ``TrainState(params, AdamWState(step, m, v,
+    master))`` with numpy leaves (``jax.tree.map(np.asarray, state)``) ->
+    the port's, on ``device``: bf16 params, fp32 moments and master
+    weights, the int32 step."""
+    params, opt = state
+    return TrainState(tree_from_numpy(params, device), AdamWState(
+        *(tree_from_numpy(x, device) for x in opt)))

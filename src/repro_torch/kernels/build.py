@@ -14,6 +14,13 @@ FMA on its own: the kernels spell out every rounding step with intrinsics
 Wrappers call :func:`on_cpu` to choose the path: a CPU tensor takes the
 kernel's plain PyTorch version, a CUDA tensor launches the kernel or
 raises; nothing falls back from one to the other.
+
+No kernel here has a backward, and a wrapper's output, written through
+``ctypes``, carries no ``grad_fn``: under autograd the gradient through
+the kernel would vanish without a word. Each wrapper therefore calls
+:func:`refuse_grad` first and raises instead, as ``jax.grad`` through the
+reference's ``pallas_call`` fails (none of its Pallas kernels has a
+``custom_vjp``).
 """
 from __future__ import annotations
 
@@ -145,6 +152,24 @@ def on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     return False
+
+
+def refuse_grad(what: str, *tensors: Optional[torch.Tensor],
+                cpu_too: bool = False) -> None:
+    """Raise if autograd is on and a floating operand ``requires_grad``:
+    the kernel would return a result with no gradient. Card operands
+    only, unless ``cpu_too`` (the wrappers whose reference kernel sits on
+    the reference's CPU path too: ``ssd`` and ``flash_attention``)."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if (t is not None and t.requires_grad and t.is_floating_point()
+                and (cpu_too or t.device.type == "cuda")):
+            raise RuntimeError(
+                f"{what}: the kernel has no gradient, as the reference's "
+                f"Pallas kernel has none (jax.grad through its pallas_call "
+                f"fails); train through attn_impl='chunked' and "
+                f"ssd_chunked, or call it under torch.no_grad()")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -261,7 +261,9 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     ``rows_per_block`` from the logical ``in_hw``. Without
     ``cout_per_block``, a filter slice too large for one block takes the
     channel-blocked grid with the largest block that fits, counted as
-    ``launches`` (a whole-Cout call)."""
+    ``launches`` (a whole-Cout call). Refuses a gradient on card operands
+    (``build.refuse_grad``)."""
+    build.refuse_grad("conv2d_int8", x_q, w_q, w_scale, bias)
     act = normalize_act(relu, act)
     cw = w_q.shape[3] if w_q.ndim == 4 else 0
     if (x_q.ndim != 4 or w_q.ndim != 4 or x_q.shape[3] != w_q.shape[2]
@@ -395,7 +397,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
            padding: str = "SAME", relu: bool = False) -> torch.Tensor:
     """fp32 NHWC conv + bias + optional relu: ``x`` [B, H, W, Cin], ``w``
     [KH, KW, Cin, Cout] (HWIO), ``bias`` [Cout]. Returns [B, H_out, W_out,
-    Cout] float32."""
+    Cout] float32. Refuses a gradient on card operands
+    (``build.refuse_grad``)."""
+    build.refuse_grad("conv2d", x, w, bias)
     if (x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]
             or (bias is not None and bias.shape != (w.shape[3],))):
         raise ValueError(f"conv2d: x {tuple(x.shape)}, w {tuple(w.shape)}")

@@ -86,7 +86,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bk: int = 256) -> torch.Tensor:
     """``q`` [B, Sq, Hq, hd], ``k``/``v`` [B, Sk, Hkv, hd] -> [B, Sq, Hq,
     hd] in ``q``'s dtype. ``bq``/``bk`` are the reference's block sizes, kept for
-    parity: they do not change the result (the kernel's tiles are 64)."""
+    parity: they do not change the result (the kernel's tiles are 64).
+    Refuses a gradient, on the CPU too (``build.refuse_grad``)."""
+    build.refuse_grad("flash_attention", q, k, v, cpu_too=True)
     _check(q, k, v)
     if build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal)

@@ -199,7 +199,9 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     buffer (scales and bias at length np) and the result is [M, n_out].
     ``bm``/``bn``/``bk`` are the reference's block sizes: ``bn``/``bk``
     fix the packed layout that is checked here, and none of them changes
-    the CUDA kernels' own tiles: :func:`route` picks the kernel by shape."""
+    the CUDA kernels' own tiles: :func:`route` picks the kernel by shape.
+    Refuses a gradient on card operands (``build.refuse_grad``)."""
+    build.refuse_grad("int8_matmul", x_q, w_q, x_scale, w_scale, bias)
     act = normalize_act(relu, act)
     out_dtype = out_dtype_for(requant_scale, out_dtype)
     m, k = x_q.shape

@@ -46,7 +46,9 @@ def quantize_apply_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_apply(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``x`` [M, N] float32, ``scale`` [N] float32 -> int8 [M, N]."""
+    """``x`` [M, N] float32, ``scale`` [N] float32 -> int8 [M, N].
+    Refuses a gradient on card operands (``build.refuse_grad``)."""
+    build.refuse_grad("quantize_apply", x, scale)
     if x.ndim != 2 or scale.shape != (x.shape[1],):
         raise ValueError(f"quantize_apply: x {tuple(x.shape)} with scale "
                          f"{tuple(scale.shape)}")

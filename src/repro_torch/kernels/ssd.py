@@ -102,7 +102,10 @@ def ssd(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     """Chunked SSD scan. ``x`` [B,S,H,P], ``B_``/``C_`` [B,S,N], ``dt``
     [B,S,H] (already positive), ``A`` [H] (negative), ``init_state``
     [B,H,P,N] or None. Returns (y [B,S,H,P] in ``x``'s dtype,
-    final_state [B,H,P,N] float32)."""
+    final_state [B,H,P,N] float32). Refuses a gradient, on the CPU too
+    (``build.refuse_grad``): :func:`repro_torch.nn.ssm.ssd_chunked` is
+    the differentiable scan."""
+    build.refuse_grad("ssd", x, B_, C_, dt, A, init_state, cpu_too=True)
     _check(x, B_, C_, dt, A, init_state)
     if build.on_cpu(x, B_, C_, dt, A, init_state):
         return ssd_plain(x, B_, C_, dt, A, init_state, chunk)

@@ -24,13 +24,16 @@ from repro_torch.nn.params import ParamSpec
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with an fp32 result and no bf16 rounding: the products of
     bf16 values are exact in fp32, the sums fp32. On the card the bf16
-    GEMM writes fp32 (``out_dtype``); on the CPU the operands widen."""
+    GEMM writes fp32 (``out_dtype``), which has no derivative: under
+    autograd, and on the CPU, the operands widen."""
     if x.dtype == w.dtype == torch.float32:
         return x @ w
-    if x.is_cuda and w.ndim == 2:
+    card = x.is_cuda and not (torch.is_grad_enabled()
+                              and (x.requires_grad or w.requires_grad))
+    if card and w.ndim == 2:
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
-    if x.is_cuda and x.ndim == w.ndim == 3:
+    if card and x.ndim == w.ndim == 3:
         return torch.bmm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
 
@@ -136,3 +139,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy (fp32, label-gather formulation — never materializes
+# a one-hot over the padded vocab)
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  valid: torch.Tensor = None) -> torch.Tensor:
+    """Mean next-token NLL in fp32; with ``valid``, the mean over the
+    valid positions (``sum(valid)`` floored at 1)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]
+    nll = lse - picked
+    if valid is None:
+        return nll.mean()
+    valid = valid.float()
+    return (nll * valid).sum() / torch.clamp_min(valid.sum(), 1.0)

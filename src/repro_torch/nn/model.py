@@ -11,12 +11,21 @@ dim takes the scan's place. The unit is a *group* (see blocks.py):
 
 Caches mirror the group structure so prefill output == decode input. A
 decode step updates the cache in place (the reference donates it).
+
+Training checkpoints each group step and each tail step (``remat``), as
+the reference wraps its scan bodies in ``jax.checkpoint``: ``"nothing"``
+saves only the step's input and recomputes the rest in the backward
+pass; ``"dots"`` also saves the outputs of the unbatched matmuls
+(``aten.mm``/``aten.addmm``), as ``dots_with_no_batch_dims_saveable``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import blocks
@@ -27,6 +36,29 @@ from repro_torch.nn.params import (ParamSpec, abstract_params, build_axes,
                                    build_params, stack, tree_index,
                                    tree_map, tree_stack)
 from repro_torch.nn.ssm import ssm_cache_spec
+
+# Activation-checkpoint policies: 'nothing' = full remat (recompute
+# everything in the backward pass: smallest live set, most recompute);
+# 'dots' = save matmul outputs (no matmul recompute, bigger live set).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = {"nothing": None, "dots": _save_dots}
+
+
+def _remat_step(fn: Callable[[torch.Tensor], torch.Tensor],
+                policy: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``fn`` checkpointed under ``policy`` (a key of ``REMAT_POLICIES``)."""
+    save = REMAT_POLICIES[policy]
+    kw = {} if save is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, save)}
+    return lambda x: checkpoint(fn, x, use_reentrant=False, **kw)
+
 
 # ---------------------------------------------------------------------------
 # Layout
@@ -150,9 +182,12 @@ def forward(
     mode: str = "train",            # train | prefill
     s_max: Optional[int] = None,    # cache capacity for prefill
     attn_impl: str = "chunked",
+    remat: bool = True,
+    remat_policy: str = "nothing",
 ):
     """Returns logits [B,S,V] (and the cache tree when mode='prefill').
-    No activation checkpointing: that is training's."""
+    ``remat`` checkpoints each group and tail step when no cache is built
+    (see the module docstring)."""
     want_cache = mode == "prefill"
     if cfg.frontend == "text":
         x = embed(params["embed"], inputs)
@@ -167,16 +202,29 @@ def forward(
     blk = dict(positions=positions, attn_impl=attn_impl,
                return_cache=want_cache, s_max=s_max)
 
+    remat = remat and not want_cache
+    if remat and remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat_policy!r}")
+
     group_caches = []
     for i in range(n_groups):
-        x, c = _group_forward(tree_index(params["groups"], i), x, cfg, dims,
-                              p, shared, blk)
+        gp = tree_index(params["groups"], i)
+        if remat:
+            x = _remat_step(lambda x, gp=gp: _group_forward(
+                gp, x, cfg, dims, p, shared, blk)[0], remat_policy)(x)
+            continue
+        x, c = _group_forward(gp, x, cfg, dims, p, shared, blk)
         group_caches.append(c)
 
     tail_caches = []
     for j in range(tail):
-        x, _, c = blocks.ssm_block(tree_index(params["tail"], j), x, cfg,
-                                   dims, return_cache=want_cache)
+        lp = tree_index(params["tail"], j)
+        if remat:
+            x = _remat_step(lambda x, lp=lp: blocks.ssm_block(
+                lp, x, cfg, dims)[0], remat_policy)(x)
+            continue
+        x, _, c = blocks.ssm_block(lp, x, cfg, dims,
+                                   return_cache=want_cache)
         tail_caches.append(c)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)

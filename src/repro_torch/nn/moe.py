@@ -100,3 +100,13 @@ def _moe_ffn_scatter(params: dict, x: torch.Tensor, cfg: ArchConfig,
     if m.num_shared_experts:
         y = y + _shared_expert(params, x, cfg)
     return y
+
+
+def aux_load_balance_loss(logits: torch.Tensor, eidx: torch.Tensor,
+                          e: int) -> torch.Tensor:
+    """Switch-style load-balance auxiliary (exposed for the training loop;
+    the reference defines it and calls it nowhere)."""
+    probs = torch.softmax(logits, dim=-1)
+    frac = F.one_hot(eidx.long(), e).float().mean(dim=0)
+    imp = probs.mean(dim=0)
+    return e * (frac * imp).sum()

@@ -3,8 +3,11 @@
 Train/prefill use the chunked SSD algorithm (arXiv:2405.21060): intra-chunk
 terms are dense matmuls, inter-chunk terms carry the chunk states. On a
 card tensor the scan is the CUDA kernel ``repro_torch.kernels.ssd``; on a
-CPU one its plain version, which is :func:`ssd_chunked`. Decode is the
-O(1)-state recurrence.
+CPU one its plain version, which is :func:`ssd_chunked` (the reference
+chooses alike: its Pallas kernel on the TPU, ``ssd_chunked`` elsewhere).
+Neither kernel has a gradient, so the SSM families train on the CPU only,
+as the reference's train only off the TPU. Decode is the O(1)-state
+recurrence.
 
 Per head h (H heads, head_dim P, state N):
     state_t = exp(dt_t * A_h) * state_{t-1} + dt_t * B_t (x) x_t
@@ -154,9 +157,11 @@ def ssm_mixer(
     A = -torch.exp(params["A_log"])
 
     xh = xs.reshape(b, s, h, p)
-    # the CUDA kernel on a card tensor, ssd_chunked on a CPU one
-    y, final_state = ssd_kernel.ssd(xh, Bs, Cs, dt, A,
-                                    chunk=min(s_cfg.chunk_size, s))
+    # the CUDA kernel on a card tensor, ssd_chunked on a CPU one, as the
+    # reference takes its Pallas kernel on the TPU only; the kernel has no
+    # gradient (it refuses one), so on the card this trains nothing
+    scan = ssd_kernel.ssd if xh.is_cuda else ssd_chunked
+    y, final_state = scan(xh, Bs, Cs, dt, A, chunk=min(s_cfg.chunk_size, s))
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(b, s, dims.d_inner).to(x.dtype)
 

@@ -1211,3 +1211,120 @@ def test_card_zamba2_prefill_launches_the_derived_kernels(cuda_device):
     make_decode_step(cfg, dims)(params, cache,
                                 torch.argmax(logits, -1)[:, None], 64)
     assert kops.launch_counts() == counts
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels refuse a gradient; the train step on the card
+# ---------------------------------------------------------------------------
+
+
+def _refusal_cases(dev):
+    """Each hand-written kernel's wrapper with valid card operands: (name,
+    call, the floating operands that may ask for a gradient)."""
+    g = torch.Generator().manual_seed(41)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g,
+                                  dtype=torch.int8).to(dev)
+    f32 = lambda *s: (torch.rand(s, generator=g) + 0.5).to(dev)
+    x_q, w_q, xs, ws, b = i8(8, 16), i8(16, 8), f32(8), f32(8), f32(8)
+    c_x, c_w, c_ws, c_b = i8(1, 8, 8, 4), i8(3, 3, 4, 8), f32(8), f32(8)
+    fx, fw = f32(1, 8, 8, 4), f32(3, 3, 4, 8)
+    qx, qs = f32(16, 8), f32(8)
+    q = f32(1, 32, 2, 16)
+    sx, sb, sdt = f32(1, 32, 2, 8), f32(1, 32, 8), f32(1, 32, 2) * 0.1
+    sa = -f32(2)
+    return [
+        ("int8_matmul", lambda xs, ws, b: tmm.int8_matmul(x_q, w_q, xs, ws,
+                                                          b), [xs, ws, b]),
+        ("conv2d_int8", lambda ws, b: tconv.conv2d_int8(c_x, c_w, ws, b),
+         [c_ws, c_b]),
+        ("conv2d", lambda x, w, b: tconv.conv2d(x, w, b), [fx, fw, c_b]),
+        ("quantize_apply", lambda x, s: tquant.quantize_apply(x, s),
+         [qx, qs]),
+        ("flash_attention", lambda q, k, v: tflash.flash_attention(q, k, v),
+         [q, q.clone(), q.clone()]),
+        ("ssd", lambda x, b, c, dt, a: tssd.ssd(x, b, c, dt, a, chunk=16)[0],
+         [sx, sb, sb.clone(), sdt, sa]),
+    ]
+
+
+def test_all_six_kernel_wrappers_refuse_a_gradient_on_the_card(cuda_device):
+    """No wrapper returns a detached result under autograd: each raises
+    for each floating operand that requires a gradient, and with none (or
+    under no_grad) launches its kernel as before."""
+    for name, call, operands in _refusal_cases(cuda_device):
+        want = call(*operands)
+        for i in range(len(operands)):
+            ops_ = [o.clone().requires_grad_(j == i)
+                    for j, o in enumerate(operands)]
+            with pytest.raises(RuntimeError, match=f"{name}: the kernel has "
+                               "no gradient"):
+                call(*ops_)
+            with torch.no_grad():
+                got = call(*ops_)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+def _train_twins(arch, dtype, dev, opts=None):
+    """One train step of a reduced() config on the card and on the CPU
+    from the same seeded state: ((loss, grads, params) per device)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepOptions, TrainState, \
+        make_loss_fn, make_train_step
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.optim.adamw import AdamW
+    cfg, dims = _reduced_arch(arch)
+    p0 = model_lib.init_params(cfg, dims, torch.Generator().manual_seed(5),
+                               "cpu")
+    p0 = tree_map(lambda a: a.to(dtype), p0)
+    batch = serve.lm_prompts(cfg, dims, 2, 32,
+                             torch.Generator().manual_seed(6), "cpu")
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+    batch["labels"] = torch.randint(0, cfg.vocab_size, (2, 32),
+                                    generator=torch.Generator().manual_seed(7))
+    opts = opts or StepOptions()
+    out = []
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda a: a.to(d), p0)
+        b = {k: v.to(d) for k, v in batch.items()}
+        leaves = tree_map(lambda a: a.detach().requires_grad_(True), p)
+        loss = make_loss_fn(cfg, dims, opts)(leaves, b)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves),
+                                    materialize_grads=True)
+        opt = AdamW(lr=1e-3)
+        state, m = make_train_step(cfg, dims, opt, opts)(
+            TrainState(p, opt.init(p)), b)
+        out.append((float(loss), [x.float().cpu() for x in grads],
+                    [x.float().cpu() for x in tree_leaves(state.params)],
+                    float(m["loss"])))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen1.5-0.5b",
+                                  "llama4-scout-17b-a16e", "musicgen-large"])
+def test_card_train_step_matches_cpu(cuda_device, arch):
+    """fp32 (TF32 off): loss within 1e-5 relative and every grad leaf
+    within 1e-4 of its max|g|; bf16: loss within 2e-2 (the MoE's router
+    and expert gate products widen under autograd, ``dot_f32``)."""
+    card, cpu = _train_twins(arch, torch.float32, cuda_device)
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    for got, want in zip(card[1], cpu[1]):
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+    card, cpu = _train_twins(arch, torch.bfloat16, cuda_device)
+    assert abs(card[3] - cpu[3]) <= 2e-2 * abs(cpu[3])
+
+
+@pytest.mark.parametrize("arch,impl", [("mamba2-780m", "chunked"),
+                                       ("zamba2-1.2b", "chunked"),
+                                       ("tinyllama-1.1b", "pallas")])
+def test_card_train_step_refuses_the_kernels(cuda_device, arch, impl):
+    """A train step that would differentiate through the ssd or flash
+    kernel on the card raises, as the reference's jax.grad through its
+    Pallas kernels fails on its TPU."""
+    from repro_torch.launch.steps import StepOptions
+    with pytest.raises(RuntimeError, match="the kernel has no gradient"):
+        _train_twins(arch, torch.float32, cuda_device,
+                     StepOptions(attn_impl=impl))

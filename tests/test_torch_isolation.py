@@ -3,14 +3,15 @@
 * ``import repro_torch`` (every submodule) never loads ``jax``;
 * nothing in ``src/repro_torch`` or ``chip_smoke.py`` imports the JAX
   package ``repro``;
-* the six numpy-only modules the port copies, the front-end's
-  ``frontend/ir.py`` and the large-model configs (``configs/*.py``) equal
-  their originals after the ``repro.`` -> ``repro_torch.`` rewrite, so any
-  drift is deliberate;
+* the seven numpy-only modules the port copies (six of ``core/`` and
+  ``runtime/fault_tolerance.py``), the front-end's ``frontend/ir.py`` and
+  the large-model configs (``configs/*.py``) equal their originals after
+  the ``repro.`` -> ``repro_torch.`` rewrite, so any drift is deliberate;
 * entry points need a card unless the caller asks for the CPU, and
   ``chip_smoke.py`` fails (printing no verdict) without one;
-* the large-model stack's modules, and ``convert`` (which reads the
-  reference's bf16 arrays), load neither ``jax`` nor ``ml_dtypes``;
+* the large-model stack's modules, ``convert`` (which reads the
+  reference's bf16 arrays) and the training launcher and its example twin
+  load neither ``jax`` nor ``ml_dtypes``;
 * the launcher refuses the architecture server's flags outside ``--mode
   lm --lm-legacy``, serves the architecture server, and serves fault
   storms, orbit radiation storms (ECC/TMR protection) and
@@ -34,8 +35,9 @@ from repro_torch.models import cnet_plus_scalar as tcnet
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+# modules of core/ by name; others by their path under the package
 COPIED = ("opgraph", "inspector", "passes", "memory", "energy",
-          "radiation")
+          "radiation", "runtime/fault_tolerance")
 
 
 def _port_modules():
@@ -52,7 +54,8 @@ ARCH_SLICE = ("repro_torch.configs", "repro_torch.configs.base",
               "repro_torch.nn.attention", "repro_torch.nn.ssm",
               "repro_torch.nn.moe", "repro_torch.nn.blocks",
               "repro_torch.nn.model", "repro_torch.launch.steps",
-              "repro_torch.convert")
+              "repro_torch.convert", "repro_torch.launch.train",
+              "repro_torch.examples.train_driver")
 CONFIGS = sorted(p.name for p in (ROOT / "src" / "repro" / "configs").glob(
     "*.py"))
 FRONTEND_SLICE = ("repro_torch.frontend", "repro_torch.frontend.ir",
@@ -102,8 +105,9 @@ def test_no_file_of_the_port_imports_the_reference(path):
 
 @pytest.mark.parametrize("name", COPIED)
 def test_copied_modules_equal_their_originals(name):
-    orig = (ROOT / "src" / "repro" / "core" / f"{name}.py").read_text()
-    port = (PORT / "core" / f"{name}.py").read_text()
+    rel = f"{name}.py" if "/" in name else f"core/{name}.py"
+    orig = (ROOT / "src" / "repro" / rel).read_text()
+    port = (PORT / rel).read_text()
     assert port == re.sub(r"\brepro\.", "repro_torch.", orig)
 
 

@@ -301,6 +301,75 @@ def logit_errors(out) -> list:
 
 
 # ---------------------------------------------------------------------------
+# training (launch/steps.py's train half, optim/)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 32
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test: the training tests' tensors are
+    tiny, and under several test workers each holding a thread per core
+    torch's CPU threads oversubscribe the cores and its small ops run
+    hundreds of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def numpy_arch_params(jc, jd, dtype="bf16", seed=0):
+    """The reference's param tree with each leaf drawn by its spec's init
+    from a numpy seed (a normal leaf: a standard normal clipped to [-2, 2]
+    times the spec's scale), as ``(jax tree, port tree on the CPU)``;
+    ``dtype="f32"`` keeps every leaf fp32. Cheaper than the reference's
+    ``init_params``, which compiles a draw per leaf shape."""
+    import jax.numpy as jnp
+    from repro.nn import model as j_model
+    from repro.nn.params import is_spec
+    from repro_torch.convert import tree_from_numpy
+    rng = np.random.default_rng(seed)
+    want = jnp.float32 if dtype == "f32" else jnp.bfloat16
+
+    def one(sp):
+        if sp.init == "zeros":
+            a = np.zeros(sp.shape, np.float32)
+        elif sp.init == "ones":
+            a = np.ones(sp.shape, np.float32)
+        else:
+            a = np.clip(rng.standard_normal(sp.shape), -2, 2) * sp.scale
+        return jnp.asarray(a, jnp.float32).astype(
+            want if dtype == "f32" else sp.dtype)
+
+    jp = jax.tree.map(one, j_model.model_spec(jc, jd), is_leaf=is_spec)
+    return jp, tree_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def train_batches(jc, jd, dtype="bf16", b=TRAIN_B, s=TRAIN_S, seed=1):
+    """``(jax batch, port batch)`` of ``arch_inputs`` plus random labels."""
+    import jax.numpy as jnp
+    jb, tb = arch_inputs(jc, jd, b, s, dtype, seed)
+    labels = np.random.default_rng(seed + 100).integers(
+        0, jc.vocab_size, (b, s)).astype(np.int32)
+    jb["labels"] = jnp.asarray(labels)
+    tb["labels"] = torch.from_numpy(labels).long()
+    return jb, tb
+
+
+def port_value_and_grad(tc, td, params, batch, opts=None):
+    """The port's loss and the grads of every leaf (sorted-key order)."""
+    from repro_torch.launch import steps as t_steps
+    from repro_torch.nn.params import tree_leaves, tree_map
+    loss_fn = t_steps.make_loss_fn(tc, td, opts or t_steps.StepOptions())
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss = loss_fn(leaves, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(leaves),
+                                materialize_grads=True)
+    return loss.detach(), list(grads)
+
+
+# ---------------------------------------------------------------------------
 # checks of the helpers
 # ---------------------------------------------------------------------------
 
