@@ -97,7 +97,24 @@ functions:
   x 4096 positions in 4 microbatches, remat "nothing", 6 AdamW steps,
   with zero hand-written kernel launches, the step wall, tokens/s, peak
   memory, the AdamW update's share and one profiled step's device busy
-  and idle share.
+  and idle share;
+* the mesh (``mesh_path``): ranks that share the card, as processes over
+  gloo (``parallel/transport.py``). A probe tries each collective the
+  port uses on CUDA tensors in a process group of its own and stages
+  the ones gloo lacks through pinned host memory (printed); each
+  family's reduced config on a (2, 2) mesh against one rank (fp32 1e-5
+  of max|logits|, bf16 0.15), the a2a MoE dispatch against the scatter
+  and GPipe against the sequential stack; tinyllama-1.1b (B=4 x 512,
+  then decode steps) and zamba2-1.2b (B=4 x 2048) at full width in bf16
+  under ``attn_impl="pallas"`` on a (1, 4) mesh, flash and ``ssd`` on
+  each rank's head shards with the derived per-rank counts (22 flash a
+  tinyllama prefill; 38 ``ssd`` + 6 flash a zamba2 prefill; none a
+  decode step), logits against one rank (bf16 within the one-rank bf16
+  prefill's own deviation from fp32 plus one ulp, 0.15 printed; fp32
+  within 1e-4); tinyllama-1.1b's full-width train step on (2, 2)
+  against the one-rank step (2e-2), with each rank's step wall, its
+  share inside collectives and its peak memory; and a 1-rank NCCL mesh
+  bit-equal to the unmeshed step, two NCCL ranks on one card refused.
 
 Besides the kernels those paths run, the fp32 ``conv2d`` (on no served
 path, as in the reference) is held against its plain version and timed
@@ -129,12 +146,14 @@ exit code non-zero; the last line is a JSON verdict only on success.
     python3 chip_smoke.py --conv-only [SRC]
     python3 chip_smoke.py --ssd-splitk-only [SRC]
     python3 chip_smoke.py --quantize-only [SRC]
+    python3 chip_smoke.py --mesh-only
 
 build the kernels of another checkout's ``src/`` (this one's by
 default) and run only the three conv phases, only the ssd phase and
 int8_matmul's split-K shapes, or only the quantize phase, so that two
 commits' kernels are timed on one card in one call (run parent, change,
-change, parent).
+change, parent). ``--mesh-only`` builds flash and ``ssd`` and runs the
+mesh phases alone.
 
 Needs a CUDA card and the repository's ``src/`` beside this file. Imports
 nothing of the JAX package.
@@ -215,6 +234,34 @@ TRAIN_FULL = ("tinyllama-1.1b", 8, 4096, 4, 6)
 # (bf16 params and grads, the fp32 accumulator, m, v and master) plus a
 # microbatch's live activations
 TRAIN_PEAK_GB = (27.0, 32.0)
+# mesh_path: the large-model stack on a mesh of 4 ranks that share the
+# card (gloo over CUDA tensors). Each family's reduced config (padded for
+# the model axis) on (2, 2) against one rank, B=4 x 32 positions: fp32
+# within 1e-5 of max|logits| (the fp32 arch bound), bf16 within the
+# reference's meshed-vs-unmeshed 0.15
+MESH_KERNELS = ("flash_attention", "ssd")
+MESH_B, MESH_S = 4, 32
+MESH_REDUCED = (("dense", ("chunked", "pallas")), ("qkv_bias", ("chunked",)),
+                ("moe", ("chunked",)), ("ssm", ("chunked",)),
+                ("hybrid", ("chunked", "pallas")), ("embed", ("chunked",)))
+MESH_F32_TOL = 1e-5
+MESH_BF16_TOL = 0.15
+# full width, bf16, pallas, on (1, 4): (arch, B, prompt, decode steps,
+# reduced?); the fp32 rerun of each prefill within 1e-4 of max|logits|
+MESH_FULL = (("tinyllama-1.1b", 4, 512, 4, False),
+             ("zamba2-1.2b", 4, 2048, 0, False))
+MESH_FULL_TP = 4
+MESH_FULL_F32_TOL = 1e-4
+# a sharded train step at full width on (2, 2): (arch, global batch,
+# positions, microbatches, steps); the step-1 loss within 2e-2 of the
+# one-rank step's, and the step-1 grad norm and the step-2 loss (after a
+# sharded update) within 1e-3 relative
+MESH_TRAIN = ("tinyllama-1.1b", 8, 4096, 4, 2)
+MESH_TRAIN_TOL = 2e-2
+MESH_TRAIN_STEP_TOL = 1e-3
+# train_path's one-rank full-width step of this run (wall ms, peak GB),
+# printed beside the sharded step's
+ONE_RANK_STEP = {}
 # the kernels each served path must launch
 CNN_KERNELS = ("int8_matmul", "conv2d_int8", "quantize_apply")
 LM_KERNELS = ("int8_matmul", "quantize_apply", "flash_attention", "ssd")
@@ -1169,13 +1216,33 @@ def quantize_phase(torch, gen, flush):
                           TPU_KERNELS["quantize_apply"], cases)
 
 
+def _mesh_kernel_shapes():
+    """The local shapes the full-width ``mesh_path`` hands each rank's
+    kernels, from the same configs and the same padded dims: flash
+    (B, S, q heads, kv heads, head dim) and ssd (B, S, heads, P, N,
+    chunk)."""
+    from repro_torch.nn.dims import compute_dims
+    flash, ssd, tp = [], [], MESH_FULL_TP
+    for arch, b, s, _, smoke in MESH_FULL:
+        cfg, _ = _arch_cfg(arch, smoke=smoke)
+        d = compute_dims(cfg, tp=tp)
+        if cfg.attends:
+            flash.append((b, s, d.num_heads // tp, d.num_kv_heads // tp,
+                          d.head_dim))
+        if cfg.ssm is not None:
+            ssd.append((b, s, d.ssm_heads // tp, cfg.ssm.head_dim,
+                        cfg.ssm.state_dim, cfg.ssm.chunk_size))
+    return flash, ssd
+
+
 def _causal_pairs(sq: int, sk: int) -> int:
     """(query, key) pairs a top-left-aligned causal mask keeps."""
     return sum(min(i + 1, sk) for i in range(sq))
 
 
 @phase("flash_attention vs plain (the LM's prefill shape, tinyllama's 8:1 "
-       "GQA prefill shape, a ragged GQA shape, a non-causal shape)")
+       "GQA prefill shape, a ragged GQA shape, a non-causal shape; "
+       "mesh_path's per-rank head shards)")
 def flash_phase(torch, gen, flush):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1230,6 +1297,22 @@ def flash_phase(torch, gen, flush):
               f"{out.dtype}, max |diff| {ulps:.3g} bf16 ulp against the "
               f"plain version; {over} element(s) beyond one ulp, all within "
               f"it + 2e-5")
+    # mesh_path's per-rank head shards, in both of its dtypes: fp32 within
+    # 2e-5, bf16 within one ulp of the plain version (drawn from a
+    # generator of their own: the other checks' inputs stay as they were)
+    g = torch.Generator().manual_seed(1)
+    for b, s, hq, hkv, hd in _mesh_kernel_shapes()[0]:
+        q, k, v = (torch.randn((b, s, h, hd), generator=g).to(dev)
+                   for h in (hq, hkv, hkv))
+        err = close(torch, fa.flash_attention(q, k, v, causal=True),
+                    fa.flash_attention_plain(q, k, v, True), 2e-5)
+        q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+        ulps, over = bf16_ulps(torch, fa.flash_attention(q, k, v, causal=True),
+                               fa.flash_attention_plain(q, k, v, True), 2e-5)
+        print(f"   mesh_path's rank shard B={b} S={s} Hq={hq} Hkv={hkv} "
+              f"hd={hd} causal: fp32 max |diff| {err:.3g} (2e-5); bf16 "
+              f"{ulps:.3g} ulp, {over} element(s) beyond one ulp, all "
+              f"within it + 2e-5")
     print("   tolerance 2e-5 (abs and rel) against the plain version; "
           "bound: 3 x the products at 495 TFLOP/s dense TF32; "
           "library_ms: F.scaled_dot_product_attention fp32 on [B,H,S,hd]")
@@ -1239,7 +1322,8 @@ def flash_phase(torch, gen, flush):
 
 
 @phase("ssd vs plain (the LM's prefill shape, S not a multiple of the "
-       "chunk, a split run carrying init_state)")
+       "chunk, a split run carrying init_state; mesh_path's per-rank head "
+       "shards)")
 def ssd_phase(torch, gen, flush):
     """Bounded by the design's arithmetic: every product as 3xTF32 on the
     tensor cores at the dense TF32 rate (the fp32 SIMT bound is printed
@@ -1250,13 +1334,22 @@ def ssd_phase(torch, gen, flush):
     dev = "cuda"
     cases = []
 
-    def inputs(b, s, h, p, n):
+    def inputs(b, s, h, p, n, gen=gen):
         x = torch.randn((b, s, h, p), generator=gen).to(dev)
         B_ = torch.randn((b, s, n), generator=gen).to(dev)
         C_ = torch.randn((b, s, n), generator=gen).to(dev)
         dt = (torch.rand((b, s, h), generator=gen) * 0.5 + 0.05).to(dev)
         A = (-(torch.rand(h, generator=gen) + 0.5)).to(dev)
         return x, B_, C_, dt, A
+
+    def exact_share(x, B_, C_, dt, A, chunk, *ys):
+        """For information: each y's max distance from the plain algorithm
+        in float64, as a share of the tolerance at each element (the
+        kernel-vs-plain check spends it on two fp32 evaluations)."""
+        y_x, _ = sd.ssd_plain(*(a.double() for a in (x, B_, C_, dt, A)),
+                              None, chunk)
+        tol = 1e-4 * (1.0 + y_x.abs())
+        return [float(((y.double() - y_x).abs() / tol).max()) for y in ys]
 
     # (B, S, H, P, N, chunk)
     for b, s, h, p, n, chunk in ((4, 2048, 64, 64, 64, 256),
@@ -1266,6 +1359,10 @@ def ssd_phase(torch, gen, flush):
         y, fin = sd.ssd(x, B_, C_, dt, A, chunk=chunk)
         torch.cuda.synchronize()
         y_p, fin_p = sd.ssd_plain(x, B_, C_, dt, A, None, chunk)
+        k_share, p_share = exact_share(x, B_, C_, dt, A, chunk, y, y_p)
+        print(f"   B={b} S={s} H={h}: against the float64 plain, the "
+              f"kernel's y {k_share:.3f} of the tolerance, the fp32 plain's "
+              f"{p_share:.3f}")
         err = max(close(torch, y, y_p, 1e-4), close(torch, fin, fin_p, 1e-4))
         t = device_ms(torch, lambda: sd.ssd(x, B_, C_, dt, A, chunk=chunk),
                       20, flush)
@@ -1326,6 +1423,28 @@ def ssd_phase(torch, gen, flush):
           f"{ulps:.3g} bf16 ulp against the plain version; {over} "
           f"element(s) beyond one ulp, all within it + 1e-4; final state "
           f"fp32, max |diff| {err:.3g}")
+    # mesh_path's per-rank head shards: fp32 x within 1e-4, bf16 x's y
+    # within one ulp of the plain version (a generator of their own)
+    g = torch.Generator().manual_seed(1)
+    for b, s, h, p, n, chunk in _mesh_kernel_shapes()[1]:
+        x, B_, C_, dt, A = inputs(b, s, h, p, n, g)
+        y, fin = sd.ssd(x, B_, C_, dt, A, chunk=chunk)
+        torch.cuda.synchronize()
+        y_p, fin_p = sd.ssd_plain(x, B_, C_, dt, A, None, chunk)
+        k_share, p_share = exact_share(x, B_, C_, dt, A, chunk, y, y_p)
+        err = max(close(torch, y, y_p, 1e-4), close(torch, fin, fin_p, 1e-4))
+        x = x.to(torch.bfloat16)
+        y, fin = sd.ssd(x, B_, C_, dt, A, chunk=chunk)
+        torch.cuda.synchronize()
+        y_p, fin_p = sd.ssd_plain(x, B_, C_, dt, A, None, chunk)
+        ulps, over = bf16_ulps(torch, y, y_p, 1e-4)
+        err16 = close(torch, fin, fin_p, 1e-4)
+        print(f"   mesh_path's rank shard B={b} S={s} H={h} P={p} N={n} "
+              f"Q={chunk}: fp32 max |diff| {err:.3g} (1e-4; against the "
+              f"float64 plain, kernel {k_share:.3f} and plain {p_share:.3f} "
+              f"of it); bf16 x: y "
+              f"{ulps:.3g} ulp, {over} element(s) beyond one ulp, all "
+              f"within it + 1e-4; final state max |diff| {err16:.3g}")
     print("   tolerance 1e-4 (abs and rel) against the plain version; "
           "bound: 3 x the products at 495 TFLOP/s dense TF32; "
           "library_ms: none (PyTorch has no SSD scan)")
@@ -2320,6 +2439,7 @@ def train_full_width_phase(torch, device="cuda"):
           f"  [{gpu}]")
     print(f"   peak memory {peak:.2f} GB (max_memory_allocated; reckoned "
           f"{TRAIN_PEAK_GB[0]}-{TRAIN_PEAK_GB[1]} GB of 80)")
+    ONE_RANK_STEP.update(ms=wall * 1e3, gb=peak)
     t0 = time.perf_counter()
     rows = device_rows(torch, prof)
     busy = sum(r[0] for r in rows) * 1e-6
@@ -3193,6 +3313,502 @@ def fault_path(torch):
     return None if full is None else counts
 
 
+# ---------------------------------------------------------------------------
+# mesh_path: the large-model stack on a mesh of ranks that share the card
+# (gloo over CUDA tensors, the collectives gloo lacks there staged through
+# pinned host memory: parallel/transport.py). Each rank is a process; the
+# functions below named _mesh_*_rank run in them.
+# ---------------------------------------------------------------------------
+
+
+def _mesh_counts(ranks):
+    """The launch counters of every kernel, flash and ssd summed over the
+    ranks' counts."""
+    from repro_torch.kernels import ops
+    counts = {k: 0 for k in counts_with_routes(ops)}
+    for r in ranks:
+        for k in MESH_KERNELS:
+            counts[k] += r[k]
+    return counts
+
+
+def _mesh_case(torch, case, tp, dev, dtype):
+    """A reduced config of ``LM_ARCH_CASES`` padded for ``tp``: (cfg,
+    dims, params in ``dtype``, prompts [MESH_B, MESH_S], the layout of the
+    prompts)."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import serve
+    from repro_torch.nn.dims import compute_dims
+    from repro_torch.nn.params import tree_map
+    arch, layers = LM_ARCH_CASES[case]
+    cfg = reduced(get_arch(arch))
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    dims = compute_dims(cfg, tp=tp)
+    params = tree_map(lambda a: a.to(dtype),
+                      serve.lm_arch_params(cfg, dims, dev, seed=0))
+    batch = serve.lm_prompts(cfg, dims, MESH_B, MESH_S,
+                             torch.Generator().manual_seed(7), dev)
+    x = batch.get("tokens", batch.get("embeds"))
+    if x.is_floating_point():
+        x = x.to(dtype)
+    ax = ("batch", "seq") if x.ndim == 2 else ("batch", "seq", None)
+    return cfg, dims, params, x, ax
+
+
+def _mesh_forward(torch, cfg, dims, params, x, ax, mesh, impl):
+    """The train-mode logits, on ``mesh`` (None: one rank), gathered."""
+    from repro_torch.nn import model as model_lib
+    from repro_torch.parallel import sharding as sh
+    with torch.no_grad():
+        if mesh is None:
+            return model_lib.forward(params, x, cfg, dims, mode="train",
+                                     remat=False, attn_impl=impl)
+        with sh.use_mesh(mesh):
+            p = sh.shard_tree(params, model_lib.param_axes(cfg, dims), mesh)
+            t = sh.layout(x, sh.spec_for(x.shape, ax, mesh), mesh)
+            return sh.full(model_lib.forward(p, t, cfg, dims, mode="train",
+                                             remat=False, attn_impl=impl))
+
+
+def _mesh_reduced_rank(rank):
+    """Each family's reduced config on a (2, 2) mesh against one rank on
+    the same device (fp32 and bf16, chunked and pallas attention); the a2a
+    dispatch against the scatter; GPipe against the sequential stack."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.nn.params import build_axes, tree_map
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.pipeline_parallel import pipeline_forward
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_test_mesh(2, 2, device_type="cuda")
+    out = {}
+    for case, impls in MESH_REDUCED:
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            cfg, dims, params, x, ax = _mesh_case(torch, case, 2, dev, dtype)
+            for impl in impls:
+                want = (_mesh_forward(torch, cfg, dims, params, x, ax, None,
+                                      impl) if rank == 0 else None)
+                got = _mesh_forward(torch, cfg, dims, params, x, ax, mesh,
+                                    impl)
+                if rank == 0:
+                    out[f"{case}/{impl}/{name}"] = (
+                        _rel(torch, got, want),
+                        float((got.float() - want.float()).abs().max()))
+    # the reference test's a2a case: 4 experts, capacity factor 8, fp32
+    cfg, dims, _, _, _ = _mesh_case(torch, "moe", 2, dev, torch.float32)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=4, capacity_factor=8.0, ep_impl="a2a"))
+    cfg_s = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ep_impl="scatter"))
+    from repro_torch.nn.params import build_params
+    spec = moe_mod.moe_spec(cfg, dims)
+    mp = tree_map(lambda a: a.float(), build_params(
+        spec, torch.Generator().manual_seed(0), dev))
+    xm = torch.randn((4, 16, dims.d_model),
+                     generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad(), sh.use_mesh(mesh):
+        p = sh.shard_tree(mp, build_axes(spec), mesh)
+        t = sh.layout(xm, sh.spec_for(xm.shape, ("batch", "seq", None), mesh),
+                      mesh)
+        a2a = sh.full(moe_mod.moe_ffn(p, t, cfg, dims))
+        scatter = sh.full(moe_mod.moe_ffn(p, t, cfg_s, dims))
+    out["a2a_vs_scatter"] = float((a2a - scatter).abs().max())
+    # GPipe over a (1, 4) (data, stage) mesh: L=8, D=16, 6 microbatches
+    pipe = make_mesh((1, 4), ("data", "stage"), device_type="cuda")
+    g = torch.Generator().manual_seed(0)
+    pp = {"w": (torch.randn(8, 16, 16, generator=g) * 0.25).to(dev),
+          "b": (torch.randn(8, 16, generator=g) * 0.1).to(dev)}
+    xp = torch.randn(6, 2, 4, 16, generator=g).to(dev)
+
+    def block(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+    want = xp
+    for i in range(8):
+        want = block({k: v[i] for k, v in pp.items()}, want)
+    with torch.no_grad():
+        got = sh.full(pipeline_forward(pp, xp, block, pipe,
+                                       extra_specs=(None, None, None)))
+    out["pipeline_vs_sequential"] = float((got - want).abs().max())
+    return out if rank == 0 else None
+
+
+@phase("mesh_path: the collective probe (gloo on CUDA tensors, ranks that "
+       "share the card); the collectives it lacks are staged through pinned "
+       "host memory")
+def mesh_probe_phase(torch):
+    from repro_torch.parallel import transport
+    t0 = time.perf_counter()
+    res = transport.probe_gloo_cuda(2)
+    for name, verdict in res.items():
+        print(f"   {name:24s} {verdict}")
+    staged = [k for k, v in res.items() if v != "ok"]
+    print(f"   staged through pinned host memory: {staged or 'none'}; gloo's "
+          f"own CUDA path: {[k for k in res if k not in staged]} "
+          f"(probed in {time.perf_counter() - t0:.1f} s on {gpu_line()})")
+    return staged
+
+
+@phase("mesh_path: every family's reduced config on a (2, 2) mesh of 4 ranks "
+       "sharing the card against one rank (fp32 1e-5 of max|logits|, bf16 "
+       "0.15); the a2a dispatch against the scatter; GPipe")
+def mesh_reduced_phase(torch, staged):
+    from repro_torch.parallel import transport
+    out = transport.spawn(_mesh_reduced_rank, 4, device="cuda",
+                          backend="gloo", staged=staged, timeout=600)[0]
+    for key, (rel, gap) in sorted((k, v) for k, v in out.items()
+                                  if isinstance(v, tuple)):
+        tol = MESH_F32_TOL if key.endswith("f32") else None
+        print(f"   {key:28s} rel {rel:.3g}  max|d| {gap:.3g}")
+        assert (rel < tol) if tol else (gap < MESH_BF16_TOL), key
+    print(f"   a2a vs scatter max|d| {out['a2a_vs_scatter']:.3g} (2e-5); "
+          f"pipeline vs sequential {out['pipeline_vs_sequential']:.3g} (1e-5)")
+    assert out["a2a_vs_scatter"] < 2e-5
+    assert out["pipeline_vs_sequential"] < 1e-5
+
+
+def _mesh_full_rank(rank):
+    """Full width, bf16, ``attn_impl="pallas"``, on a (1, 4) mesh: each
+    arch's prefill and decode steps with this rank's flash/ssd launches
+    counted from 0, its logits against one rank's (rank 0, same device);
+    then the prefill again in fp32."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import StepOptions
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.dims import compute_dims
+    from repro_torch.nn.params import tree_map
+    from repro_torch.parallel import sharding as sh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_test_mesh(1, MESH_FULL_TP, device_type="cuda")
+    out = {}
+    for arch, b, s, n_dec, smoke in MESH_FULL:
+        cfg, _ = _arch_cfg(arch, smoke=smoke)
+        dims = compute_dims(cfg, tp=MESH_FULL_TP)
+        params = serve.lm_arch_params(cfg, dims, dev, seed=0)
+        batch = serve.lm_prompts(cfg, dims, b, s,
+                                 torch.Generator().manual_seed(7), dev)
+        key = "tokens" if "tokens" in batch else "embeds"
+        ax = ("batch", "seq") if key == "tokens" else ("batch", "seq", None)
+        rec, one = {}, {}
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            p = tree_map(lambda a: a.to(dtype), params)
+            x = batch[key] if key == "tokens" else batch[key].to(dtype)
+            steps = n_dec if name == "bf16" else 0
+            # both sides fed the same tokens (greedy picks could part at
+            # a near-tie in bf16)
+            feed = [torch.randint(0, cfg.vocab_size, (b, 1), generator=g)
+                    for g in [torch.Generator().manual_seed(9)]
+                    for _ in range(steps)]
+            want = (list(serve.lm_steps(cfg, dims, p, {key: x}, steps,
+                                        StepOptions("pallas"), feed=feed))
+                    if rank == 0 else None)
+            _sync(torch, dev)
+            with sh.use_mesh(mesh):
+                dp = sh.shard_tree(p, model_lib.param_axes(cfg, dims), mesh)
+                dx = sh.layout(x, sh.spec_for(x.shape, ax, mesh), mesh)
+                _sync(torch, dev)
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                gen = serve.lm_steps(cfg, dims, dp, {key: dx}, steps,
+                                     StepOptions("pallas"), feed=feed)
+                got = [next(gen)]
+                _sync(torch, dev)
+                t_pre = time.perf_counter() - t0
+                pre = ops.launch_counts()
+                t0 = time.perf_counter()
+                got += list(gen)
+                _sync(torch, dev)
+                t_dec = (time.perf_counter() - t0) / max(steps, 1)
+                dec = ops.launch_counts()
+            rec[name] = {
+                "prefill": {k: pre[k] for k in MESH_KERNELS},
+                "decode": {k: dec[k] - pre[k] for k in MESH_KERNELS},
+                "prefill_s": t_pre, "decode_step_s": t_dec,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            got = [sh.full(g[0]) for g in got]       # a collective: all ranks
+            if rank == 0:
+                one[name] = want[0][0].float()
+                gaps = [(g.float() - w[0].float()).abs().max()
+                        for g, w in zip(got, want)]
+                rec[name]["max_gap"] = float(max(gaps))
+                rec[name]["rel"] = _rel(torch, got[0], want[0][0])
+                rec[name]["finite"] = all(bool(torch.isfinite(g).all())
+                                          for g in got)
+        if rank == 0:
+            # the bf16 noise of the one-rank prefill itself: its max
+            # deviation from the fp32 prefill, plus one bf16 ulp of
+            # max|logits| (lm_arch's rule, _lm_arch_checks)
+            a, f = one["bf16"], one["f32"]
+            rec["dev"] = float((a - f).abs().max())
+            rec["limit"] = LM_ARCH_BF16_GAP_RATIO * rec["dev"] + 2.0 ** (
+                math.floor(math.log2(float(a.abs().max()))) - 7)
+        rec["want"] = {"flash_attention": cfg.num_attn_layers(),
+                       "ssd": (cfg.num_layers
+                               if cfg.family in ("ssm", "hybrid") else 0)}
+        out[arch] = rec
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+@phase("mesh_path: zamba2-1.2b and tinyllama-1.1b at full width in bf16, "
+       "attn_impl=pallas, on a (1, 4) mesh: flash and ssd on each rank's "
+       "head shards, derived per-rank launch counts, logits against one rank")
+def mesh_full_width_phase(torch, staged):
+    from repro_torch.parallel import transport
+    ranks = transport.spawn(_mesh_full_rank, MESH_FULL_TP, device="cuda",
+                            backend="gloo", staged=staged, timeout=900)
+    gpu = gpu_line()
+    per_rank = []
+    for arch, *_ in MESH_FULL:
+        want = ranks[0][arch]["want"]
+        for r, rec in enumerate(ranks):
+            b16 = rec[arch]["bf16"]
+            assert b16["prefill"] == want, (arch, r, b16["prefill"], want)
+            assert b16["decode"] == {k: 0 for k in MESH_KERNELS}
+            assert rec[arch]["f32"]["prefill"] == want
+            per_rank.append(b16["prefill"])
+        r0 = ranks[0][arch]
+        gap = r0["bf16"]["max_gap"]
+        print(f"   {arch}: per-rank prefill launches {want} (derived) on "
+              f"every rank; decode steps none; fp32 prefill rel "
+              f"{r0['f32']['rel']:.3g} ({MESH_FULL_F32_TOL}); bf16 max|d| "
+              f"{gap:.3g} over the prefill and decode steps: "
+              + ("within" if gap < MESH_BF16_TOL else "NOT within")
+              + f" {MESH_BF16_TOL}; the one-rank bf16 prefill's own "
+              f"deviation from fp32 {r0['dev']:.3g}, limit dev + one bf16 "
+              f"ulp {r0['limit']:.3g}, gap / limit {gap / r0['limit']:.3f}")
+        assert r0["bf16"]["finite"] and r0["f32"]["finite"]
+        assert gap <= r0["limit"], arch
+        assert r0["f32"]["rel"] < MESH_FULL_F32_TOL, arch
+        walls = [rec[arch]["bf16"]["prefill_s"] for rec in ranks]
+        decs = [rec[arch]["bf16"]["decode_step_s"] for rec in ranks]
+        peak = max(rec[arch]["bf16"]["peak_gb"] for rec in ranks)
+        dec = (f"decode step {max(decs) * 1e3:.1f} ms, " if dict(
+            (a, n) for a, _, _, n, _ in MESH_FULL)[arch] else "")
+        print(f"     bf16 prefill wall {max(walls) * 1e3:.1f} ms (slowest "
+              f"rank; first call of the mesh), {dec}peak {peak:.2f} GB a "
+              f"rank  [{gpu}]")
+    return _mesh_counts([{k: sum(c[k] for c in per_rank)
+                          for k in MESH_KERNELS}])
+
+
+class _CollectiveClock:
+    """Wall time inside the functional collectives (the card synced before
+    each, so pending compute is not charged to them)."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        clock = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace != "_c10d_functional":
+                    return func(*args, **(kwargs or {}))
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = func(*args, **(kwargs or {}))
+                if func._opname == "wait_tensor" and out.is_cuda:
+                    torch.cuda.synchronize()
+                clock.seconds += time.perf_counter() - t0
+                return out
+        self.seconds = 0.0
+        self.mode = Mode()
+
+
+def _mesh_train_rank(rank):
+    """Full-width train steps on a (2, 2) mesh: per-rank step walls, the
+    share inside collectives, peak memory, the losses and grad norms."""
+    import torch
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.data.pipeline import DataConfig, host_shard, local_slice
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import shardings_for_cell
+    from repro_torch.launch.steps import (StepOptions, TrainState,
+                                          make_train_step)
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.dims import compute_dims
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.parallel import sharding as sh
+    arch, b, s, micro, n_steps = MESH_TRAIN
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_test_mesh(2, 2, device_type="cuda")
+    cfg, _ = _arch_cfg(arch, smoke=False)
+    dims = compute_dims(cfg, tp=2)
+    shape = SHAPES_BY_NAME["train_4k"]
+    adamw = AdamW(lr=cosine_schedule(3e-4, warmup=20, total=100))
+    step = make_train_step(cfg, dims, adamw, StepOptions(
+        remat=True, remat_policy="nothing", microbatch=micro))
+    torch.cuda.reset_peak_memory_stats()
+    with sh.use_mesh(mesh):
+        cell = shardings_for_cell(cfg, dims, shape, mesh, adamw)
+        params = sh.place_tree(model_lib.init_params(
+            cfg, dims, torch.Generator().manual_seed(0), dev),
+            cell["params"], mesh)
+        state = TrainState(params, adamw.init(params))
+        index, count = sh.coordinate(cell["inputs"]["labels"][0], mesh)
+        walls, coll, losses, norms = [], [], [], []
+        for i in range(n_steps):
+            rows = local_slice(i, cfg, dims, shape, DataConfig(), index,
+                               count, batch_override=b, seq_override=s)
+            batch = host_shard(rows, mesh, cell["inputs"], dev)
+            clock = _CollectiveClock(torch)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            with clock.mode:
+                state, m = step(state, batch)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+            coll.append(clock.seconds)
+            losses.append(float(sh.full(m["loss"])))
+            norms.append(float(sh.full(m["grad_norm"])))
+    return {"walls": walls, "coll": coll, "losses": losses, "norms": norms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+@phase("mesh_path: sharded train steps of tinyllama-1.1b at full width on "
+       "(2, 2), chunked attention, against the one-rank steps")
+def mesh_train_phase(torch, staged):
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.steps import (StepOptions, TrainState,
+                                          make_train_step)
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.dims import compute_dims
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.parallel import transport
+    arch, b, s, micro, n_steps = MESH_TRAIN
+    ranks = transport.spawn(_mesh_train_rank, 4, device="cuda",
+                            backend="gloo", staged=staged, timeout=900)
+    # the one-rank steps on the same card from the same seeded state, fed
+    # the global batches the ranks' rows assemble to
+    dev = torch.device("cuda")
+    cfg, _ = _arch_cfg(arch, smoke=False)
+    dims = compute_dims(cfg, tp=2)
+    shape = SHAPES_BY_NAME["train_4k"]
+    adamw = AdamW(lr=cosine_schedule(3e-4, warmup=20, total=100))
+    params = model_lib.init_params(cfg, dims,
+                                   torch.Generator().manual_seed(0), dev)
+    state = TrainState(params, adamw.init(params))
+    step = make_train_step(cfg, dims, adamw, StepOptions(
+        remat=True, remat_policy="nothing", microbatch=micro))
+    one = {"walls": [], "losses": [], "norms": []}
+    for i in range(n_steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+            i, cfg, dims, shape, DataConfig(), batch_override=b,
+            seq_override=s).items()}
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        _sync(torch, dev)
+        one["walls"].append(time.perf_counter() - t0)
+        one["losses"].append(float(m["loss"]))
+        one["norms"].append(float(m["grad_norm"]))
+    del params, state, batch
+    torch.cuda.empty_cache()
+    gpu = gpu_line()
+    got = ranks[0]
+    rel = {k: [abs(g - w) / abs(w) for g, w in zip(got[k], one[k])]
+           for k in ("losses", "norms")}
+    print(f"   {arch} B={b} x {s}, {micro} microbatches, {n_steps} steps: "
+          f"losses sharded {got['losses']}, one rank {one['losses']}, rel "
+          f"{[float(f'{r:.3g}') for r in rel['losses']]}; grad norms "
+          f"sharded {got['norms']}, one rank {one['norms']}, rel "
+          f"{[float(f'{r:.3g}') for r in rel['norms']]} (step-1 loss "
+          f"{MESH_TRAIN_TOL}; every loss and grad norm {MESH_TRAIN_STEP_TOL})")
+    assert rel["losses"][0] < MESH_TRAIN_TOL, rel
+    assert max(rel["losses"] + rel["norms"]) < MESH_TRAIN_STEP_TOL, rel
+    for r, rec in enumerate(ranks):
+        warm = rec["walls"][1:] or rec["walls"]
+        cw = rec["coll"][1:] or rec["coll"]
+        wall = sum(warm) / len(warm)
+        print(f"   rank {r}: step wall {wall * 1e3:.1f} ms (the first "
+              f"{rec['walls'][0] * 1e3:.1f}), in collectives "
+              f"{sum(cw) / len(cw) * 1e3:.1f} ms = "
+              f"{sum(cw) / sum(warm):.3f} of it, peak {rec['peak_gb']:.2f} GB"
+              f"  [{gpu}]")
+    print(f"   one-rank steps on the same card: "
+          f"{[round(w * 1e3, 1) for w in one['walls']]} ms (the first a "
+          f"first call) at B={b}  [{gpu}]" + (
+              f"; train_path's warm one-rank step at B={TRAIN_FULL[1]} x "
+              f"{TRAIN_FULL[2]}: {ONE_RANK_STEP['ms']:.1f} ms, peak "
+              f"{ONE_RANK_STEP['gb']:.2f} GB" if ONE_RANK_STEP else ""))
+
+
+def _mesh_nccl_rank(rank):
+    """The reduced dense train step on a 1-rank NCCL mesh: (loss, grads)
+    of the sharded step and the unmeshed one, as fp32 numpy."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import StepOptions, make_loss_fn
+    from repro_torch.nn import model as model_lib
+    from repro_torch.nn.params import tree_leaves, tree_map
+    from repro_torch.parallel import sharding as sh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_test_mesh(1, 1, device_type="cuda")
+    cfg, dims, params, x, ax = _mesh_case(torch, "dense", 1, dev,
+                                          torch.float32)
+    labels = torch.randint(0, cfg.vocab_size, x.shape,
+                           generator=torch.Generator().manual_seed(8)).to(dev)
+    loss_fn = make_loss_fn(cfg, dims, StepOptions())
+
+    def vg(p, batch):
+        leaves = tree_map(lambda a: a.detach().requires_grad_(True), p)
+        loss = loss_fn(leaves, batch)
+        return loss, torch.autograd.grad(loss, tree_leaves(leaves))
+    l0, g0 = vg(params, {"tokens": x, "labels": labels})
+    with sh.use_mesh(mesh):
+        p = sh.shard_tree(params, model_lib.param_axes(cfg, dims), mesh)
+        batch = {k: sh.layout(v, sh.spec_for(v.shape, ax, mesh), mesh)
+                 for k, v in (("tokens", x), ("labels", labels))}
+        l1, g1 = vg(p, batch)
+        l1, g1 = sh.full(l1), [sh.full(g) for g in g1]
+    return (bool(torch.equal(l0, l1)),
+            all(bool(torch.equal(a, b)) for a, b in zip(g0, g1)))
+
+
+@phase("mesh_path: one NCCL check (a 1-rank NCCL mesh runs the reduced "
+       "sharded step bit-equal to the unmeshed one); a CUDA mesh of more "
+       "ranks than cards over nccl is refused")
+def mesh_nccl_phase(torch):
+    from repro_torch.parallel import transport
+    loss_eq, grads_eq = transport.spawn(_mesh_nccl_rank, 1,
+                                        device="cuda", backend="nccl",
+                                        timeout=300)[0]
+    print(f"   1-rank NCCL mesh: loss bit-equal {loss_eq}, every grad "
+          f"bit-equal {grads_eq}")
+    assert loss_eq and grads_eq
+    try:
+        transport.init_ranks(0, 2, transport.free_port(), device="cuda",
+                             backend="nccl")
+    except ValueError as e:
+        print(f"   2 ranks over nccl on {torch.cuda.device_count()} card: "
+              f"refused ({e})")
+    else:
+        raise AssertionError("2 ranks over nccl on one card were not refused")
+
+
+def mesh_path(torch):
+    """The mesh phases in order; the launch counts of the full-width run
+    (flash and ssd summed over its ranks), or None if it failed."""
+    staged = mesh_probe_phase(torch)
+    if staged is None:
+        return None
+    mesh_reduced_phase(torch, staged)
+    counts = mesh_full_width_phase(torch, staged)
+    torch.cuda.empty_cache()
+    mesh_train_phase(torch, staged)
+    mesh_nccl_phase(torch)
+    return counts
+
+
 def only(torch, src: Path, phases, kernels=None) -> int:
     """Build ``src``'s kernels (``kernels``: those named, else all) and run
     ``phases`` only (a phase's extra arguments ride in a tuple beside
@@ -3226,6 +3842,9 @@ def main() -> int:
     ap.add_argument("--quantize-only", nargs="?", const=str(SRC),
                     metavar="SRC", help="the same for the quantize phase "
                     "(builds quantize_apply alone)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build flash and ssd and run only their phases "
+                    "and the mesh_path phases")
     args = ap.parse_args()
     picked = args.conv_only or args.ssd_splitk_only or args.quantize_only
     src = SRC if picked is None else Path(picked).resolve()
@@ -3250,6 +3869,20 @@ def main() -> int:
         return only(torch, src, [(ssd_phase,), (matmul_phase, "splitk")])
     if args.quantize_only is not None:
         return only(torch, src, [(quantize_phase,)], ["quantize_apply"])
+    if args.mesh_only:
+        if build_phase(list(MESH_KERNELS)) is not None:
+            gen = torch.Generator().manual_seed(0)
+            flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+            flash_phase(torch, gen, flush)
+            ssd_phase(torch, gen, flush)
+            del flush
+            counts = mesh_path(torch)
+            print(f"launches on the mesh_path path: {counts}")
+        print(gpu_line(), flush=True)
+        if FAILURES:
+            print(f"FAILED phases: {FAILURES}", flush=True)
+            return 1
+        return 0
 
     records = []
     if build_phase() is not None:
@@ -3326,6 +3959,10 @@ def main() -> int:
         if counts is not None:          # no hand-written kernel on this path
             paths["train_path"] = ((), counts)
         torch.cuda.empty_cache()
+        counts = mesh_path(torch)
+        if counts is not None:
+            paths["mesh_path"] = (MESH_KERNELS, counts)
+        torch.cuda.empty_cache()
         counts = fault_path(torch)
         if counts is not None:
             paths["fault_phase"] = (FAULT_KERNELS, counts)
@@ -3344,7 +3981,7 @@ def main() -> int:
         counts = examples_phase(torch)
         if counts is not None:
             paths["examples"] = (EXAMPLE_KERNELS, counts)
-        if len(paths) != 10 + len(SPACE_MODELS):
+        if len(paths) != 11 + len(SPACE_MODELS):
             FAILURES.append("a served path failed")
         for path, (names, counts) in paths.items():
             print(f"launches on the {path} path: {counts}")

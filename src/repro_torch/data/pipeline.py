@@ -5,9 +5,14 @@ For training/benchmarks we generate deterministic synthetic batches
 important for checkpoint/restart tests). The batches are numpy, equal to
 the reference's bit for bit; the launcher moves them to the device.
 
-The reference's ``host_shard`` assembles global arrays over a device mesh;
-it comes with the multi-device slice. :func:`local_slice` is the single
-process's view: the whole batch.
+``host_shard`` mimics the multi-host layout: each rank holds only its
+rows of the global batch (:func:`local_slice`), and the global array is
+assembled from those local blocks as a DTensor (``DTensor.from_local``, the
+counterpart of ``jax.make_array_from_process_local_data``); no rank moves
+another's rows. Rank and world size take the place of
+``jax.process_index()`` and ``process_count()``. As in the reference, the
+host draws the step's whole batch (the stream is seeded per step, not per
+row) and keeps its slice.
 """
 from __future__ import annotations
 
@@ -15,9 +20,12 @@ import dataclasses
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.nn.dims import Dims
+from repro_torch.parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +81,52 @@ def data_iterator(cfg: ArchConfig, dims: Dims, shape: ShapeSpec,
         step += 1
 
 
+# ---------------------------------------------------------------------------
+# Host sharding
+# ---------------------------------------------------------------------------
+
+
+def host_shard(batch: Dict[str, np.ndarray], mesh, specs,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Assemble global arrays from (this rank's rows of) a batch.
+
+    ``specs[k]`` lays array ``k`` out on ``mesh`` (``launch/specs.py:
+    input_specs``). With one rank ``batch`` is the whole batch and is
+    placed by the specs. With several, ``batch`` holds the rows of this
+    rank's block of the batch dim (:func:`local_slice` with
+    ``sharding.coordinate(specs[k][0], mesh)``); each array is cut to
+    this rank's block of its other dims and the global array assembled
+    from the local blocks — no rank materializes another's rows."""
+    dev = device or mesh.device_type
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        spec = specs[k]
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            out[k] = sharding.layout(t, spec, mesh)
+            continue
+        rows = t.shape[0] * sharding.coordinate(spec[0], mesh)[1]
+        out[k] = sharding.from_blocks(sharding.block(t, spec, mesh, first=1),
+                                      spec, mesh, (rows, *t.shape[1:]))
+    return out
+
+
 def local_slice(step: int, cfg: ArchConfig, dims: Dims, shape: ShapeSpec,
-                dc: DataConfig = DataConfig()) -> Dict[str, np.ndarray]:
-    """The rows this process is responsible for: one process holds the
-    whole global batch (the reference with ``jax.process_count() == 1``)."""
-    return synthetic_batch(step, cfg, dims, shape, dc)
+                dc: DataConfig = DataConfig(), index: Optional[int] = None,
+                count: Optional[int] = None,
+                batch_override: Optional[int] = None,
+                seq_override: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The rows process ``index`` of ``count`` is responsible for
+    (default: this rank of the running process group, the reference's
+    ``jax.process_index()`` of ``process_count()``; one process holds the
+    whole batch)."""
+    if index is None or count is None:
+        live = dist.is_initialized()
+        index = dist.get_rank() if live else 0
+        count = dist.get_world_size() if live else 1
+    full = synthetic_batch(step, cfg, dims, shape, dc, batch_override,
+                           seq_override)
+    b_global = next(iter(full.values())).shape[0]
+    b_local = max(b_global // count, 1)
+    lo = (index * b_local) % b_global
+    return {k: v[lo: lo + b_local] for k, v in full.items()}

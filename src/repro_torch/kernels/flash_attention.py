@@ -87,9 +87,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``q`` [B, Sq, Hq, hd], ``k``/``v`` [B, Sk, Hkv, hd] -> [B, Sq, Hq,
     hd] in ``q``'s dtype. ``bq``/``bk`` are the reference's block sizes, kept for
     parity: they do not change the result (the kernel's tiles are 64).
-    Refuses a gradient, on the CPU too (``build.refuse_grad``)."""
+    Refuses a gradient, on the CPU too (``build.refuse_grad``). On
+    ``meta`` tensors it returns the output's shape and launches nothing."""
     build.refuse_grad("flash_attention", q, k, v, cpu_too=True)
     _check(q, k, v)
+    if q.is_meta:                     # shapes only (the dry-run): no launch
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     if build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal)
     global launches

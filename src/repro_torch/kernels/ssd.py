@@ -66,21 +66,23 @@ def ssd_plain(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
               dt: torch.Tensor, A: torch.Tensor,
               init_state: Optional[torch.Tensor] = None,
               chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same chunked algorithm in tensor ops, one chunk at a time."""
+    """The same chunked algorithm in tensor ops, one chunk at a time: in
+    fp32, or in float64 for float64 inputs (an exact yardstick)."""
     _check(x, B_, C_, dt, A, init_state)
     b, s, h, p = x.shape
     n = B_.shape[-1]
     q = chunk_size(s, chunk)
-    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.float())
-    a_h = A.float()
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    state = (torch.zeros((b, h, p, n), dtype=acc, device=x.device)
+             if init_state is None else init_state.to(acc))
+    a_h = A.to(acc)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     ys = []
     for c0 in range(0, s, q):
-        xc = x[:, c0:c0 + q].float()                         # [b,q,h,p]
-        bc = B_[:, c0:c0 + q].float()                        # [b,q,n]
-        cc = C_[:, c0:c0 + q].float()
-        dtc = dt[:, c0:c0 + q].float()                       # [b,q,h]
+        xc = x[:, c0:c0 + q].to(acc)                         # [b,q,h,p]
+        bc = B_[:, c0:c0 + q].to(acc)                        # [b,q,n]
+        cc = C_[:, c0:c0 + q].to(acc)
+        dtc = dt[:, c0:c0 + q].to(acc)                       # [b,q,h]
         cum = torch.cumsum(dtc * a_h, dim=1)
         li = cum[:, :, None, :] - cum[:, None, :, :]         # [b,i,j,h]
         L = torch.where(tri[None, :, :, None], torch.exp(li), 0.0)
@@ -104,9 +106,15 @@ def ssd(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     [B,H,P,N] or None. Returns (y [B,S,H,P] in ``x``'s dtype,
     final_state [B,H,P,N] float32). Refuses a gradient, on the CPU too
     (``build.refuse_grad``): :func:`repro_torch.nn.ssm.ssd_chunked` is
-    the differentiable scan."""
+    the differentiable scan. On ``meta`` tensors it returns the outputs'
+    shapes and launches nothing."""
     build.refuse_grad("ssd", x, B_, C_, dt, A, init_state, cpu_too=True)
     _check(x, B_, C_, dt, A, init_state)
+    if x.is_meta:                     # shapes only (the dry-run): no launch
+        b, _, h, p = x.shape
+        return (torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                torch.empty((b, h, p, B_.shape[-1]), dtype=torch.float32,
+                            device="meta"))
     if build.on_cpu(x, B_, C_, dt, A, init_state):
         return ssd_plain(x, B_, C_, dt, A, init_state, chunk)
     global launches

@@ -22,8 +22,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import model as model_lib
 from repro_torch.nn.dims import Dims
 from repro_torch.nn.layers import cross_entropy
-from repro_torch.nn.params import tree_leaves, tree_map
+from repro_torch.nn.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.parallel.sharding import like
 
 
 class TrainState(NamedTuple):
@@ -77,8 +78,10 @@ def make_train_step(cfg: ArchConfig, dims: Dims, optimizer: AdamW,
             # table) gets zeros, as jax.grad gives it
             grads = torch.autograd.grad(loss, tree_leaves(leaves),
                                         materialize_grads=True)
-        it = iter(grads)
-        return loss.detach(), tree_map(lambda _: next(it), leaves)
+        # on a mesh each gradient takes its parameter's layout (the
+        # data-parallel reduction)
+        return loss.detach(), tree_unflatten(leaves, [
+            like(g, p) for g, p in zip(grads, tree_leaves(leaves))])
 
     def grads_of(params, batch):
         if not opts.microbatch or opts.microbatch <= 1:
@@ -88,8 +91,8 @@ def make_train_step(cfg: ArchConfig, dims: Dims, optimizer: AdamW,
             raise ValueError(f"microbatch {n} does not divide the batch")
         loss_a = torch.zeros((), dtype=torch.float32,
                              device=tree_leaves(params)[0].device)
-        g_a = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        g_a = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
         for i in range(n):
             mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
                   for k, v in batch.items()}

@@ -14,6 +14,11 @@ Three interchangeable implementations (``impl=``):
 Decode attends one new token against a cached [B, S_max, Hkv, hd] KV,
 written in place at ``pos`` (as the reference's donated cache lets its
 compiler do).
+
+On a mesh the heads are sharded over 'model' and the attention core runs
+on each rank's local heads (``parallel.sharding.shard_map``): the flash
+kernel takes local tensors only, and every impl is per (row, head), so
+no collective runs inside.
 """
 from __future__ import annotations
 
@@ -27,6 +32,10 @@ from repro_torch.kernels import flash_attention as flash
 from repro_torch.nn.dims import Dims
 from repro_torch.nn.layers import apply_rope
 from repro_torch.nn.params import ParamSpec, build_params, tree_map
+from repro_torch.parallel.sharding import (constrain, current_mesh,
+                                           current_rules, local_op, shard_map,
+                                           spec_for, sp_gather_seq,
+                                           tp_proj_scatter, write_at)
 
 NEG_INF = -2.0e38
 
@@ -52,16 +61,40 @@ def attn_spec(cfg: ArchConfig, dims: Dims) -> dict:
 
 
 def _project_qkv(params, x, cfg: ArchConfig, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, params["w_q"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["w_k"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["w_v"])
-    if cfg.qkv_bias:
-        q = q + params["b_q"]
-        k = k + params["b_k"]
-        v = v + params["b_v"]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    # SP -> TP transition: all-gather the sequence dim ONCE on the [B,S,D]
+    # activation, so the three projections read gathered x and emit
+    # head-sharded outputs with no further collectives.
+    x = sp_gather_seq(x)
+
+    def proj(name, heads, rope):
+        # on each rank's rows and heads: the projection, its bias, RoPE
+        ops = [(x, ("batch", None, None)),
+               (params[f"w_{name}"], (None, heads, None))]
+        if cfg.qkv_bias:
+            ops.append((params[f"b_{name}"], (heads, None)))
+        ops.append((positions, ("batch", None)))
+
+        def f(x, w, *rest):
+            *bias, pos = rest
+            y = _in_proj(x, w)
+            if bias:
+                y = y + bias[0]
+            return apply_rope(y, pos, cfg.rope_theta) if rope else y
+        return local_op(f, ("batch", None, heads, None), *ops)
+
+    q = proj("q", "heads", True)
+    k = proj("k", "kv_heads", True)
+    v = proj("v", "kv_heads", False)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     return q, k, v
+
+
+def _in_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``bsd,dhk->bshk`` as one matmul over the flattened heads (the GEMM
+    einsum makes)."""
+    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
 def _out_proj(out: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
@@ -121,29 +154,53 @@ def multihead_attention(
     With ``return_kv``, also returns the rope'd K/V (padded to ``s_max``)
     so prefill can hand a cache to the decode loop."""
     q, k, v = _project_qkv(params, x, cfg, positions)
-    qg = _group(q, dims.num_kv_heads)
     scale = dims.head_dim ** -0.5
     s = x.shape[1]
-    if impl == "pallas":
-        out = flash.flash_attention(q, k, v, causal=True)
-    elif impl == "naive" or s <= chunk:
-        out = _attend_naive(qg, k, v, scale)
-    elif impl == "chunked":
-        out = _attend_chunked(qg, k, v, scale, min(chunk, s))
-    else:
+    if impl not in ("pallas", "naive", "chunked"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    y = _out_proj(out, params["w_o"])
+
+    def core(q, k, v):
+        if impl == "pallas":
+            return flash.flash_attention(q, k, v, causal=True)
+        qg = _group(q, k.shape[2])
+        if impl == "naive" or s <= chunk:
+            return _attend_naive(qg, k, v, scale)
+        return _attend_chunked(qg, k, v, scale, min(chunk, s))
+
+    out = _local_heads(core, q, k, v)
+    out = constrain(out, "batch", None, "heads", None)
+    # TP -> SP: the output projection and a reduce-scatter in one region
+    y = tp_proj_scatter(out, params["w_o"], _out_proj,
+                        ("batch", None, "heads", None), w_sharded_dim=0)
     if not return_kv:
         return y
     pad = (s_max or s) - s
     if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        # on each rank's rows and heads: the padded dim is whole there
+        kv = ("batch", None, "kv_heads", None)
+        k, v = (local_op(lambda a: torch.nn.functional.pad(
+            a, (0, 0, 0, 0, 0, pad)), kv, (a, kv)) for a in (k, v))
     if cfg.kv_quant:
         k_q, k_s = quantize_kv(k)
         v_q, v_s = quantize_kv(v)
         return y, {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
     return y, {"k": k, "v": v}
+
+
+def _local_heads(core, q, k, v):
+    """``core(q, k, v)`` -> [B, S, H, hd]; on a mesh, on each rank's
+    local rows and heads (q's heads and k/v's must split alike, which
+    ``nn/dims.py`` pads for)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return core(q, k, v)
+    rules = current_rules()
+    q_spec = spec_for(q.shape, ("batch", None, "heads", None), mesh, rules)
+    kv_spec = spec_for(k.shape, ("batch", None, "kv_heads", None), mesh, rules)
+    if q_spec[2] != kv_spec[2]:
+        raise ValueError(f"q heads {q.shape[2]} and kv heads {k.shape[2]} "
+                         f"split differently on {mesh}")
+    return shard_map(core, mesh, (q_spec, kv_spec, kv_spec), q_spec)(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -205,25 +262,32 @@ def decode_attention(
         vq_new, vs_new = quantize_kv(v_new)
         for name, val in (("k_q", kq_new), ("k_s", ks_new),
                           ("v_q", vq_new), ("v_s", vs_new)):
-            cache[name][:, pos:pos + 1] = val
+            write_at(cache[name], pos, val)
         k = dequantize_kv(cache["k_q"], cache["k_s"], x.dtype)
         v = dequantize_kv(cache["v_q"], cache["v_s"], x.dtype)
+        k = constrain(k, "batch", None, "kv_heads", None)
+        v = constrain(v, "batch", None, "kv_heads", None)
         return _decode_core(params, x, q, k, v, pos, dims), cache
 
-    cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
-    cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
-    return _decode_core(params, x, q, cache["k"], cache["v"], pos, dims), cache
+    write_at(cache["k"], pos, k_new.to(cache["k"].dtype))
+    write_at(cache["v"], pos, v_new.to(cache["v"].dtype))
+    k = constrain(cache["k"], "batch", None, "kv_heads", None)
+    v = constrain(cache["v"], "batch", None, "kv_heads", None)
+    return _decode_core(params, x, q, k, v, pos, dims), cache
 
 
 def _decode_core(params, x, q, k, v, pos, dims) -> torch.Tensor:
-    b = x.shape[0]
-    qg = _group(q, dims.num_kv_heads)[:, 0]                  # [B, kv, g, hd]
     scale = dims.head_dim ** -0.5
-    s_max = k.shape[1]
-    scores = torch.einsum("bkgh,bskh->bkgs", qg, k).float() * scale
-    mask = torch.arange(s_max, device=x.device) <= pos
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgs,bskh->bkgh", probs, v)
-    out = out.reshape(b, 1, dims.num_heads, dims.head_dim)
-    return _out_proj(out, params["w_o"])
+
+    def core(q, k, v):
+        b, _, hq, hd = q.shape
+        qg = _group(q, k.shape[2])[:, 0]                    # [B, kv, g, hd]
+        s_max = k.shape[1]
+        scores = torch.einsum("bkgh,bskh->bkgs", qg, k).float() * scale
+        mask = torch.arange(s_max, device=q.device) <= pos
+        scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bkgs,bskh->bkgh", probs, v)
+        return out.reshape(b, 1, hq, hd)
+
+    return _out_proj(_local_heads(core, q, k, v), params["w_o"])

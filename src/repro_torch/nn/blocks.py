@@ -21,6 +21,14 @@ from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import ssm as ssm_mod
 from repro_torch.nn.dims import Dims
 from repro_torch.nn.layers import mlp, mlp_spec, norm_spec, residual, rmsnorm
+from repro_torch.parallel.sharding import constrain
+
+
+def _res(sums):
+    """A full-sequence block's residual sum ``(x, xf)`` laid out (batch,
+    seq) between blocks, as the reference constrains it (identity without
+    a mesh)."""
+    return tuple(constrain(a, "batch", "seq", None) for a in sums)
 
 # ---------------------------------------------------------------------------
 # Dense (attention + SwiGLU) block, and the MoE block (dense attention +
@@ -64,8 +72,8 @@ def dense_block(params, x, cfg, dims, positions, attn_impl="chunked",
     kv = None
     if return_cache:
         a, kv = a
-    x, xf = residual(x, a)
-    x, xf = _ffn(params, x, xf, cfg, dims)
+    x, xf = _res(residual(x, a))
+    x, xf = _res(_ffn(params, x, xf, cfg, dims))
     return x, xf, kv
 
 
@@ -94,7 +102,7 @@ def ssm_block(params, x, cfg, dims, return_cache=False, xf=None):
     cache = None
     if return_cache:
         y, cache = y
-    return (*residual(x, y), cache)
+    return (*_res(residual(x, y)), cache)
 
 
 def ssm_block_decode(params, x, cache, cfg, dims, xf=None):

@@ -2,8 +2,9 @@
 (src/repro/nn/layers.py).
 
 The reference's sharding hints (``constrain``, the sequence gather and
-the reduce-scatter down-projection) are the identity without a mesh; on
-one card they are dropped and each projection is its einsum.
+the reduce-scatter down-projection, ``parallel/sharding.py``) sit where
+the reference puts them; without a mesh each is the identity and each
+projection is its product.
 
 Rounding follows what the reference's compiled program computes. Where
 the reference widens a bf16 product or sum straight to fp32
@@ -20,16 +21,21 @@ import torch.nn.functional as F
 
 from repro_torch.nn.dims import Dims
 from repro_torch.nn.params import ParamSpec
+from repro_torch.parallel.sharding import (constrain, is_dtensor, local_op,
+                                           sp_gather_seq, tp_proj_scatter,
+                                           vocab_lookup)
 
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with an fp32 result and no bf16 rounding: the products of
     bf16 values are exact in fp32, the sums fp32. On the card the bf16
-    GEMM writes fp32 (``out_dtype``), which has no derivative: under
-    autograd, and on the CPU, the operands widen."""
+    GEMM writes fp32 (``out_dtype``), which has no derivative and no
+    sharding rule: under autograd, on a mesh, and on the CPU, the operands
+    widen."""
     if x.dtype == w.dtype == torch.float32:
         return x @ w
     card = x.is_cuda and not (torch.is_grad_enabled()
-                              and (x.requires_grad or w.requires_grad))
+                              and (x.requires_grad or w.requires_grad)) \
+        and not (is_dtensor(x) or is_dtensor(w))
     if card and w.ndim == 2:
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
@@ -79,20 +85,27 @@ def mlp_spec(dims: Dims) -> dict:
     }
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor, gate_f32: bool = False) -> torch.Tensor:
-    """``silu(x @ w_gate) * (x @ w_up) @ w_down``, the silu in fp32.
-    ``gate_f32``: the gate product is not rounded to ``x``'s dtype (the
-    MoE experts' batched product, which the reference's compiled program
-    keeps in fp32)."""
+def swiglu_hidden(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                  gate_f32: bool = False) -> torch.Tensor:
+    """``silu(x @ w_gate) * (x @ w_up)``, the silu in fp32. ``gate_f32``:
+    the gate product is not rounded to ``x``'s dtype (the MoE experts'
+    batched product, which the reference's compiled program keeps in
+    fp32)."""
     h = dot_f32(x, w_gate) if gate_f32 else x @ w_gate
     u = x @ w_up
-    h = F.silu(h.float()).to(x.dtype) * u
-    return h @ w_down
+    return F.silu(h.float()).to(x.dtype) * u
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    # SP gather once, TP-sharded gate/up, explicit reduce-scatter
+    # down-projection
+    x = sp_gather_seq(x)
+    h = local_op(swiglu_hidden, ("batch", None, "ffn"),
+                 (x, ("batch", None, None)), (params["w_gate"], (None, "ffn")),
+                 (params["w_up"], (None, "ffn")))
+    h = constrain(h, "batch", None, "ffn")
+    return tp_proj_scatter(h, params["w_down"], torch.matmul,
+                           ("batch", None, "ffn"), w_sharded_dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -108,14 +121,20 @@ def embed_spec(dims: Dims, tie: bool) -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens]
+    """On a mesh, vocab-parallel (``vocab_lookup``): DTensor's indexing
+    rules fail on a vocab-sharded table in torch 2.11."""
+    return vocab_lookup(params["embedding"], tokens)
 
 
 def lm_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """On a mesh, vocab-parallel: the gathered sequence against each rank's
+    vocab columns."""
     head = params.get("lm_head")
     if head is None:
         head = params["embedding"].T
-    return x @ head
+    x = sp_gather_seq(x)
+    return local_op(torch.matmul, ("batch", None, "vocab"),
+                    (x, ("batch", None, None)), (head, (None, "vocab")))
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from repro_torch.nn.params import (ParamSpec, abstract_params, build_axes,
                                    build_params, stack, tree_index,
                                    tree_map, tree_stack)
 from repro_torch.nn.ssm import ssm_cache_spec
+from repro_torch.parallel.sharding import constrain, like
 
 # Activation-checkpoint policies: 'nothing' = full remat (recompute
 # everything in the backward pass: smallest live set, most recompute);
@@ -168,6 +169,14 @@ def init_cache(cfg: ArchConfig, dims: Dims, batch: int, s_max: int,
     return build_params(zeroed, torch.Generator(), device)
 
 
+def abstract_cache(cfg: ArchConfig, dims: Dims, batch: int, s_max: int):
+    return abstract_params(cache_spec(cfg, dims, batch, s_max))
+
+
+def cache_axes(cfg: ArchConfig, dims: Dims, batch: int, s_max: int):
+    return build_axes(cache_spec(cfg, dims, batch, s_max))
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
@@ -197,6 +206,7 @@ def forward(
     s_max = s_max or s
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    x = constrain(x, "batch", "seq", None)
     n_groups, p, tail = group_layout(cfg)
     shared = params.get("shared_attn")
     blk = dict(positions=positions, attn_impl=attn_impl,
@@ -229,11 +239,18 @@ def forward(
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params["embed"], x)
+    logits = constrain(logits, "batch", "seq", None)
     if not want_cache:
         return logits
-    cache = {"groups": tree_stack(group_caches)}
+    cache = {}
+    if group_caches:
+        cache["groups"] = tree_stack(group_caches)
     if tail_caches:
         cache["tail"] = tree_stack(tail_caches)
+    # on a mesh, in the cache's own layout (the reference's out_shardings)
+    axes = cache_axes(cfg, dims, b, s_max)
+    cache = tree_map(lambda c, ax: constrain(c, *ax), cache,
+                     {k: axes[k] for k in cache})
     return logits, cache
 
 
@@ -283,9 +300,10 @@ def _group_forward(gp, x, cfg, dims, p, shared, blk):
 
 
 def _write_back(dst, src) -> None:
-    """Copy a block's new cache into its (view of the) stacked cache; the
-    attention caches were written in place already."""
-    tree_map(lambda d, s: None if s is d else d.copy_(s), dst, src)
+    """Copy a block's new cache into its (view of the) stacked cache, in
+    the cache's layout; the attention caches were written in place
+    already."""
+    tree_map(lambda d, s: None if s is d else d.copy_(like(s, d)), dst, src)
 
 
 def decode(
@@ -302,6 +320,7 @@ def decode(
         x = embed(params["embed"], token_or_embed)
     else:
         x = token_or_embed
+    x = constrain(x, "batch", None, None)
 
     n_groups, p, tail = group_layout(cfg)
     shared = params.get("shared_attn")

@@ -58,6 +58,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """``leaves`` (sorted-key order, as :func:`tree_leaves` gives them) in
+    ``tree``'s structure."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+    return walk(tree)
+
+
 def tree_index(tree, i: int):
     """Entry ``i`` of every stacked leaf (views, no copy)."""
     return tree_map(lambda a: a[i], tree)

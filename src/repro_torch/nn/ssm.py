@@ -25,6 +25,9 @@ from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.nn.dims import Dims
 from repro_torch.nn.layers import dot_f32
 from repro_torch.nn.params import ParamSpec, build_params, tree_map
+from repro_torch.parallel.sharding import (current_mesh, current_rules,
+                                           shard_map, sp_gather_seq, spec_for,
+                                           tp_proj_scatter)
 
 # ---------------------------------------------------------------------------
 # Params
@@ -137,33 +140,42 @@ def ssm_mixer(
     dims: Dims,
     return_cache: bool = False,
 ):
-    """Full-sequence Mamba2 block core (no residual/norm — block adds those)."""
+    """Full-sequence Mamba2 block core (no residual/norm — block adds those).
+    On a mesh the sequence is gathered once, the projections, convs and
+    scan run on each rank's rows and heads (``d_inner`` and the heads split
+    alike over 'model'), the gated norm reduces across them, and the
+    output projection reduce-scatters onto the sequence."""
     s_cfg = cfg.ssm
-    b, s, _ = x.shape
-    h, p = dims.ssm_heads, s_cfg.head_dim
+    w = s_cfg.conv_width
+    x = sp_gather_seq(x)
 
-    z = x @ params["w_z"]
-    xs = x @ params["w_x"]
-    Bs = x @ params["w_B"]
-    Cs = x @ params["w_C"]
-    dt_raw = x @ params["w_dt"]
+    def core(x, w_z, w_x, w_B, w_C, w_dt, conv_x, conv_B, conv_C, dt_bias,
+             A_log, D):
+        b, s, _ = x.shape
+        z = x @ w_z
+        xs = x @ w_x
+        Bs = x @ w_B
+        Cs = x @ w_C
+        dt_raw = x @ w_dt
+        # pre-conv streams' tails: the decode cache
+        tails = (xs[:, s - (w - 1):, :], Bs[:, s - (w - 1):, :],
+                 Cs[:, s - (w - 1):, :])
+        xs = F.silu(_causal_conv(xs, conv_x))
+        Bs = F.silu(_causal_conv(Bs, conv_B))
+        Cs = F.silu(_causal_conv(Cs, conv_C))
+        dt = _dt_activation(dt_raw, dt_bias)
+        A = -torch.exp(A_log)
+        h = dt.shape[-1]
+        # xh [B, S, H, P]: laid out (batch, None, ssm_heads, None), the
+        # reference's constraint here
+        xh = xs.reshape(b, s, h, xs.shape[-1] // h)
+        y, final_state = _scan(xh, Bs, Cs, dt, A, min(s_cfg.chunk_size, s))
+        y = y + D[None, None, :, None] * xh
+        return (y.reshape(b, s, xs.shape[-1]).to(x.dtype), z, *tails,
+                final_state)
 
-    xs_pre, Bs_pre, Cs_pre = xs, Bs, Cs       # pre-conv streams (cache tail)
-    xs = F.silu(_causal_conv(xs, params["conv_x"]))
-    Bs = F.silu(_causal_conv(Bs, params["conv_B"]))
-    Cs = F.silu(_causal_conv(Cs, params["conv_C"]))
-
-    dt = _dt_activation(dt_raw, params["dt_bias"])
-    A = -torch.exp(params["A_log"])
-
-    xh = xs.reshape(b, s, h, p)
-    # the CUDA kernel on a card tensor, ssd_chunked on a CPU one, as the
-    # reference takes its Pallas kernel on the TPU only; the kernel has no
-    # gradient (it refuses one), so on the card this trains nothing
-    scan = ssd_kernel.ssd if xh.is_cuda else ssd_chunked
-    y, final_state = scan(xh, Bs, Cs, dt, A, chunk=min(s_cfg.chunk_size, s))
-    y = y + params["D"][None, None, :, None] * xh
-    y = y.reshape(b, s, dims.d_inner).to(x.dtype)
+    y, z, conv_x, conv_B, conv_C, final_state = _on_heads(
+        core, params, x, ("batch", None, None), dims)
 
     # gated RMSNorm (mamba2's norm-before-out-proj)
     yf = y.float()
@@ -171,17 +183,66 @@ def ssm_mixer(
     y = (yf * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype)
     y = y * params["gate_norm"] * F.silu(z.float()).to(x.dtype)
 
-    out = y @ params["w_out"]
+    out = tp_proj_scatter(y, params["w_out"], torch.matmul,
+                          ("batch", None, "ffn"), w_sharded_dim=0)
     if not return_cache:
         return out
-    w = s_cfg.conv_width
-    cache = {
-        "conv_x": xs_pre[:, s - (w - 1):, :],
-        "conv_B": Bs_pre[:, s - (w - 1):, :],
-        "conv_C": Cs_pre[:, s - (w - 1):, :],
-        "state": final_state,
-    }
+    cache = {"conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C,
+             "state": final_state}
     return out, cache
+
+
+_CORE_PARAMS = ("w_z", "w_x", "w_B", "w_C", "w_dt", "conv_x", "conv_B",
+                "conv_C", "dt_bias", "A_log", "D")
+
+
+def _on_heads(core, params, x, x_logical, dims, *cache):
+    """``core(x, *params, *cache)`` -> (y, z, conv_x, conv_B, conv_C,
+    state), on each rank's rows and heads on a mesh: ``d_inner`` ('ffn')
+    and the heads ('ssm_heads') split over 'model' together, or neither."""
+    mesh = current_mesh()
+    args = (x, *(params[k] for k in _CORE_PARAMS), *cache)
+    if mesh is None:
+        return core(*args)
+    rules = current_rules()
+    heads = spec_for((dims.ssm_heads,), ("ssm_heads",), mesh, rules)[0]
+    ffn = "ffn" if heads is not None else None
+    hd = "ssm_heads" if heads is not None else None
+    lead = x_logical[:-1]                          # (batch,) or (batch, None)
+    logical = {"w_z": (None, ffn), "w_x": (None, ffn), "w_B": (None, None),
+               "w_C": (None, None), "w_dt": (None, hd),
+               "conv_x": (None, ffn), "conv_B": (None, None),
+               "conv_C": (None, None), "dt_bias": (hd,), "A_log": (hd,),
+               "D": (hd,)}
+    conv = [("batch", None, ffn), ("batch", None, None), ("batch", None, None)]
+    state = ("batch", hd, None, None)
+    in_logical = [x_logical] + [logical[k] for k in _CORE_PARAMS]
+    if cache:
+        in_logical += conv + [state]
+    outs = [(*lead, ffn), (*lead, ffn), *conv, state]
+
+    def spec(shape, lg):
+        return spec_for(shape, lg, mesh, rules)
+    b = x.shape[0]
+    w, di = params["conv_x"].shape[0], params["w_x"].shape[1]
+    n, p = params["w_B"].shape[1], di // dims.ssm_heads
+    out_shapes = [(*x.shape[:-1], di), (*x.shape[:-1], di), (b, w - 1, di),
+                  (b, w - 1, n), (b, w - 1, n), (b, dims.ssm_heads, p, n)]
+    return shard_map(core, mesh,
+                     [spec(a.shape, lg) for a, lg in zip(args, in_logical)],
+                     [spec(sh_, lg) for sh_, lg in zip(out_shapes, outs)]
+                     )(*args)
+
+
+def _scan(xh, Bs, Cs, dt, A, chunk: int):
+    """The SSD scan: the CUDA kernel on a card tensor, ssd_chunked on a CPU
+    one, as the reference takes its Pallas kernel on the TPU only; the
+    kernel has no gradient (it refuses one), so on the card this trains
+    nothing. A shape-only (``meta``) run outside autograd, the dry-run's,
+    takes the kernel too: it is what the card runs."""
+    kernel = xh.is_cuda or (xh.is_meta and not torch.is_grad_enabled())
+    scan = ssd_kernel.ssd if kernel else ssd_chunked
+    return scan(xh, Bs, Cs, dt, A, chunk=chunk)
 
 
 def ssm_decode_step(
@@ -191,35 +252,42 @@ def ssm_decode_step(
     cfg: ArchConfig,
     dims: Dims,
 ):
-    """O(1) recurrent step; returns (y [B,1,D], new cache)."""
-    s_cfg = cfg.ssm
-    b = x.shape[0]
-    h, p = dims.ssm_heads, s_cfg.head_dim
-    xt = x[:, 0, :]
+    """O(1) recurrent step; returns (y [B,1,D], new cache). On a mesh the
+    recurrence runs on each rank's rows and heads, as in
+    :func:`ssm_mixer`."""
 
-    # z and dt_raw are widened to fp32 at once: dot_f32, see nn/layers.py
-    z = dot_f32(xt, params["w_z"])
-    xs = xt @ params["w_x"]
-    Bs = xt @ params["w_B"]
-    Cs = xt @ params["w_C"]
-    dt_raw = dot_f32(xt, params["w_dt"])
+    def core(xt, w_z, w_x, w_B, w_C, w_dt, conv_x, conv_B, conv_C, dt_bias,
+             A_log, D, c_x, c_B, c_C, state):
+        b = xt.shape[0]
+        # z and dt_raw are widened to fp32 at once: dot_f32, see
+        # nn/layers.py
+        z = dot_f32(xt, w_z)
+        xs = xt @ w_x
+        Bs = xt @ w_B
+        Cs = xt @ w_C
+        dt_raw = dot_f32(xt, w_dt)
 
-    xs, conv_x = _conv_step(cache["conv_x"], xs, params["conv_x"])
-    Bs, conv_B = _conv_step(cache["conv_B"], Bs, params["conv_B"])
-    Cs, conv_C = _conv_step(cache["conv_C"], Cs, params["conv_C"])
-    xs = F.silu(xs.float())
-    Bs = F.silu(Bs.float())
-    Cs = F.silu(Cs.float())
+        xs, c_x = _conv_step(c_x, xs, conv_x)
+        Bs, c_B = _conv_step(c_B, Bs, conv_B)
+        Cs, c_C = _conv_step(c_C, Cs, conv_C)
+        xs = F.silu(xs.float())
+        Bs = F.silu(Bs.float())
+        Cs = F.silu(Cs.float())
 
-    dt = _dt_activation(dt_raw, params["dt_bias"])              # [B, H]
-    A = -torch.exp(params["A_log"])
-    decay = torch.exp(dt * A)                                   # [B, H]
+        dt = _dt_activation(dt_raw, dt_bias)                    # [B, H]
+        A = -torch.exp(A_log)
+        decay = torch.exp(dt * A)                               # [B, H]
 
-    xh = xs.reshape(b, h, p)
-    state = cache["state"] * decay[:, :, None, None] + torch.einsum(
-        "bh,bn,bhp->bhpn", dt, Bs, xh)
-    y = torch.einsum("bn,bhpn->bhp", Cs, state) + params["D"][None, :, None] * xh
-    y = y.reshape(b, dims.d_inner)
+        h = dt.shape[-1]
+        xh = xs.reshape(b, h, xs.shape[-1] // h)
+        state = state * decay[:, :, None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt, Bs, xh)
+        y = torch.einsum("bn,bhpn->bhp", Cs, state) + D[None, :, None] * xh
+        return y.reshape(b, xs.shape[-1]), z, c_x, c_B, c_C, state
+
+    y, z, conv_x, conv_B, conv_C, state = _on_heads(
+        core, params, x[:, 0, :], ("batch", None), dims, cache["conv_x"],
+        cache["conv_B"], cache["conv_C"], cache["state"])
 
     var = y.square().mean(-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps)

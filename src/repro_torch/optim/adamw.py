@@ -44,8 +44,8 @@ class AdamW:
 
     def init(self, params) -> AdamWState:
         dev = tree_leaves(params)[0].device
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+        # zeros_like keeps a sharded param's layout (a DTensor's placements)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
             m=tree_map(zeros, params),

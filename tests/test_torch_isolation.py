@@ -11,7 +11,10 @@
   ``chip_smoke.py`` fails (printing no verdict) without one;
 * the large-model stack's modules, ``convert`` (which reads the
   reference's bf16 arrays) and the training launcher and its example twin
-  load neither ``jax`` nor ``ml_dtypes``;
+  load neither ``jax`` nor ``ml_dtypes``; nor do the mesh slice's
+  (``parallel/``, ``launch/{mesh,specs,dryrun,group_probe}.py``);
+* the copied rule tables equal the reference's dicts, and the dry-run's
+  ``WIRE_FACTOR`` and ``DTYPE_BYTES`` the reference's;
 * the launcher refuses the architecture server's flags outside ``--mode
   lm --lm-legacy``, serves the architecture server, and serves fault
   storms, orbit radiation storms (ECC/TMR protection) and
@@ -74,6 +77,7 @@ def test_importing_the_port_loads_no_jax():
     assert set(LM_SLICE) <= set(mods)
     assert set(FRONTEND_SLICE) <= set(mods)
     assert set(ARCH_SLICE) <= set(mods)
+    assert set(MESH_SLICE) <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
@@ -138,6 +142,48 @@ def test_the_large_model_stack_alone_loads_no_jax_or_ml_dtypes(mod):
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+MESH_SLICE = ("repro_torch.parallel.sharding", "repro_torch.parallel.transport",
+              "repro_torch.parallel.pipeline_parallel",
+              "repro_torch.launch.mesh", "repro_torch.launch.specs",
+              "repro_torch.launch.dryrun", "repro_torch.launch.group_probe",
+              "repro_torch.data.pipeline")
+
+
+def test_the_mesh_slice_loads_no_jax_or_ml_dtypes():
+    """The mesh slice's modules, imported in one fresh process, load
+    neither jax, repro nor ml_dtypes."""
+    code = ("import importlib, sys\n"
+            f"for m in {MESH_SLICE!r}: importlib.import_module(m)\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'repro', 'ml_dtypes')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, check=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("name", ["SINGLE_POD_RULES", "MULTI_POD_RULES"])
+def test_copied_rule_tables_equal_the_references(name):
+    pytest.importorskip("jax")
+    from repro.parallel import sharding as j_sh
+    from repro_torch.parallel import sharding as t_sh
+    assert getattr(t_sh, name) == getattr(j_sh, name)
+
+
+@pytest.mark.parametrize("name", ["WIRE_FACTOR", "DTYPE_BYTES"])
+def test_dryrun_tables_equal_the_references(name):
+    """Read from the reference's source: importing its dry-run forces 512
+    host devices on the importing process."""
+    from repro_torch.launch import dryrun
+    tree = ast.parse((ROOT / "src" / "repro" / "launch" / "dryrun.py"
+                      ).read_text())
+    want = next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", None) == name)
+    assert getattr(dryrun, name) == want
 
 
 @pytest.mark.parametrize("name", CONFIGS)
