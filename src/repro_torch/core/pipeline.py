@@ -3,8 +3,9 @@
 The paper's PYNQ flow is load_ip_input() -> start_ip() -> read_ip_output().
 This pipeline reproduces that phase structure with a pool of reusable host
 staging buffers (batch k+1 is assembled while batch k computes), dispatch
-tickets riding CUDA's asynchronous stream, and micro-batching, with
-per-phase timing. It also implements the use cases' selective downlink:
+tickets riding CUDA's asynchronous stream, and micro-batching; its stages
+carry the spans and per-dispatch records of ``core/spans.py`` while
+tracing is on. It also implements the use cases' selective downlink:
 requests whose output passes the keep predicate are kept, the rest
 dropped, and the downlink reduction is reported.
 
@@ -15,7 +16,8 @@ ladder rung and drives :meth:`execute_batch` (or
 
 Synchronization: no path calls ``torch.cuda.synchronize``. A dispatch's
 outputs are copied to the host — which waits for exactly that batch's
-work on the stream — when its :class:`DispatchTicket` retires.
+work on the stream — when its :class:`DispatchTicket` retires (traced, the
+host first waits for the dispatch's own event).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import memory as memory_mod
+from repro_torch.core import spans
 from repro_torch.kernels.sample import split
 
 
@@ -40,26 +43,9 @@ def split_seeds(seed: np.ndarray, n: int) -> np.ndarray:
 
 
 @dataclasses.dataclass
-class PhaseTimes:
-    stage_in: float = 0.0
-    compute: float = 0.0
-    stage_out: float = 0.0
-    overlapped: float = 0.0         # wall time saved by pipelining
-
-    @property
-    def serial(self) -> float:
-        return self.stage_in + self.compute + self.stage_out
-
-    @property
-    def wall(self) -> float:
-        return self.serial - self.overlapped
-
-
-@dataclasses.dataclass
 class ServeStats:
     n_requests: int
     n_kept: int
-    phases: PhaseTimes
     fps: float
 
     @property
@@ -69,14 +55,12 @@ class ServeStats:
 
 @dataclasses.dataclass
 class BatchResult:
-    """One dispatched batch: host outputs sliced back to the real requests,
-    the per-request keep verdicts, and per-phase timings. ``compute_time``
-    spans dispatch to retirement."""
+    """One dispatched batch: host outputs sliced back to the real requests
+    and the per-request keep verdicts; ``span`` holds its times while
+    tracing is on."""
     outputs: Dict[str, np.ndarray]      # [n_real, ...] — padding sliced off
     keep: List[bool]                    # per real request
-    stage_time: float
-    compute_time: float
-    output_time: float
+    span: Optional[spans.Draft] = None
 
     @property
     def n_kept(self) -> int:
@@ -171,8 +155,7 @@ class DispatchTicket:
     outputs: Optional[Dict[str, torch.Tensor]]
     n_real: int
     slot: Optional[int]
-    stage_time: float
-    dispatched_at: float                # perf_counter at dispatch
+    span: Optional[spans.Draft] = None
     _result: Optional[BatchResult] = None
 
     @property
@@ -196,19 +179,17 @@ class DispatchTicket:
                 "retire() after a failed retirement: this ticket's batch "
                 "was already abandoned (its outputs are gone)")
         try:
+            if self.span is not None:
+                self.span.wait()
             host_out = self.pipeline._unstage(self.outputs, self.n_real)
-            t1 = time.perf_counter()
             keep = self.pipeline._keep(host_out, self.n_real)
-            t2 = time.perf_counter()
         except BaseException:
             self.outputs = None         # poison: no result can ever exist
             self._release()
             raise
         self.outputs = {}               # drop the device references
         self._release()
-        self._result = BatchResult(
-            host_out, keep, stage_time=self.stage_time,
-            compute_time=t1 - self.dispatched_at, output_time=t2 - t1)
+        self._result = BatchResult(host_out, keep, self.span)
         return self._result
 
 
@@ -243,6 +224,7 @@ class ServingPipeline:
         """The plan's pipeline-stage decomposition."""
         return self._plan.stages
 
+    @spans.traced("pipeline.stage")
     def _stage(self, reqs: List[Dict[str, np.ndarray]]
                ) -> Tuple[Dict[str, torch.Tensor], Optional[int]]:
         """Stage one batch into an arena slot, falling back to a fresh
@@ -261,32 +243,46 @@ class ServingPipeline:
         return ({k: v.to(self.device, non_blocking=True)
                  for k, v in host.items()}, slot)
 
-    def _dispatch(self, staged: Dict[str, torch.Tensor], rng: np.ndarray
+    @spans.traced("plan.dispatch")
+    def _dispatch(self, staged: Dict[str, torch.Tensor], rng: np.ndarray,
+                  draft: Optional[spans.Draft] = None
                   ) -> Tuple[Dict[str, torch.Tensor], np.ndarray]:
         """One plan call, nothing waited for; returns (device outputs,
-        carried-over seed)."""
+        carried-over seed). A traced dispatch's ``draft`` marks the device's
+        stream right after the plan's last launch: the host's own tail after
+        it (tens of us, more under a profiler) is not the device's work."""
         seeds = split_seeds(rng, self.batch_size + 1)
         rngs = torch.from_numpy(seeds[1:].astype(np.int64))
-        return self._plan(staged, rngs), seeds[0]
+        if draft is None:
+            return self._plan(staged, rngs), seeds[0]
+        return self._plan(staged, rngs, draft.mark), seeds[0]
 
-    def _issue(self, staged: Dict[str, torch.Tensor], slot: Optional[int],
-               n_real: int, stage_time: float, rng: np.ndarray
-               ) -> Tuple[DispatchTicket, np.ndarray]:
+    def _submit(self, reqs: List[Dict[str, np.ndarray]], rng: np.ndarray
+                ) -> Tuple[DispatchTicket, np.ndarray]:
+        """Stage and dispatch one batch; returns (ticket, carried-over
+        seed)."""
+        draft = spans.Draft() if spans.on else None
+        staged, slot = self._stage(reqs)
+        if draft is not None:
+            draft.stage1 = time.monotonic_ns()
         try:
-            out, carry = self._dispatch(staged, rng)
+            out, carry = self._dispatch(staged, rng, draft)
         except BaseException:
             if slot is not None:        # dispatch failed: slot back to pool
                 self.arena.release(slot)
             raise
-        ticket = DispatchTicket(self, out, n_real, slot, stage_time,
-                                time.perf_counter())
+        if draft is not None:
+            draft.launched = time.monotonic_ns()
+        ticket = DispatchTicket(self, out, len(reqs), slot, draft)
         self._inflight.append(ticket)
         return ticket, carry
 
+    @spans.traced("pipeline.unstage")
     def _unstage(self, out: Dict[str, torch.Tensor], n_real: int
                  ) -> Dict[str, np.ndarray]:
         return {k: v[:n_real].cpu().numpy() for k, v in out.items()}
 
+    @spans.traced("pipeline.keep")
     def _keep(self, host_out: Dict[str, np.ndarray], n_real: int
               ) -> List[bool]:
         if self.keep_predicate is None:
@@ -303,11 +299,7 @@ class ServingPipeline:
         it; the returned ticket owns the staging slot until `retire()`."""
         if rng is None:
             rng = np.zeros(2, np.uint32)
-        t0 = time.perf_counter()
-        staged, slot = self._stage(reqs)
-        t1 = time.perf_counter()
-        ticket, _ = self._issue(staged, slot, len(reqs), t1 - t0, rng)
-        return ticket
+        return self._submit(reqs, rng)[0]
 
     def execute_batch(self, reqs: List[Dict[str, np.ndarray]],
                       rng: Optional[np.ndarray] = None) -> BatchResult:
@@ -330,9 +322,8 @@ class ServingPipeline:
         tickets when the slot pool runs dry and at stream end;
         ``pipeline=False`` retires each batch before the next."""
         reqs = list(requests)
-        phases = PhaseTimes()
         if not reqs:                        # empty stream: zero-request stats
-            return ServeStats(n_requests=0, n_kept=0, phases=phases, fps=0.0)
+            return ServeStats(n_requests=0, n_kept=0, fps=0.0)
         kept = 0
         rng = np.zeros(2, np.uint32)
         batches = [reqs[i:i + self.batch_size]
@@ -344,27 +335,21 @@ class ServingPipeline:
             nonlocal kept
             res = tickets.popleft().retire()
             kept += sum(res.keep)
-            phases.stage_in += res.stage_time
-            phases.compute += res.compute_time
-            phases.stage_out += res.output_time
+            if res.span is not None:
+                spans.finish(res.span, None, self.engine.graph.name,
+                             self.batch_size, len(res.keep))
 
         wall0 = time.perf_counter()
         for chunk in batches:
             if pipeline:
                 while tickets and self.arena.n_free == 0:
                     _retire_next()
-            t0 = time.perf_counter()
-            staged, slot = self._stage(chunk)
-            stage_t = time.perf_counter() - t0
-            ticket, rng = self._issue(staged, slot, len(chunk), stage_t, rng)
+            ticket, rng = self._submit(chunk, rng)
             tickets.append(ticket)
             if not pipeline:
                 _retire_next()
         while tickets:                      # stream-end flush
             _retire_next()
         wall = time.perf_counter() - wall0
-
-        phases.overlapped = max(phases.serial - wall, 0.0)
         fps = len(reqs) / max(wall, 1e-12)
-        return ServeStats(n_requests=len(reqs), n_kept=kept, phases=phases,
-                          fps=fps)
+        return ServeStats(n_requests=len(reqs), n_kept=kept, fps=fps)

@@ -514,14 +514,17 @@ class ExecutionPlan:
         sample for random ops (split per random node). ``tuning`` (node ->
         TuningDecision, one batch rung) binds the autotuned configs. The
         result holds the graph outputs and, under :func:`ssd_state_key`,
-        each ``ssd`` node's final state."""
+        each ``ssd`` node's final state. ``mark``, when given, is called
+        right after the last node's launches."""
         graph, params = self.graph, self.params
         qplans, fused_into = self.qplans, self.fused_into
         packed = self.packed
         device = self.device
 
         def f(inputs: Dict[str, torch.Tensor], rngs: torch.Tensor,
-              weights: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+              weights: Dict[str, torch.Tensor],
+              mark: Optional[Callable[[], None]] = None
+              ) -> Dict[str, torch.Tensor]:
             vals: Dict[str, torch.Tensor] = {}
             states: Dict[str, torch.Tensor] = {}    # ssd final states
             batch = rngs.shape[0]
@@ -562,6 +565,8 @@ class ExecutionPlan:
                         rngs, sub = split_keys(rngs)
                     vals[name] = BATCHED_OP_IMPLS[node.op](
                         xs, params.get(name, {}), node.attrs, sub)
+            if mark is not None:
+                mark()
             return {**{o: vals[o] for o in graph.outputs}, **states}
 
         return f
@@ -851,10 +856,12 @@ class CompiledPlan:
     def n_traces(self) -> int:
         return self.plan.n_traces
 
-    def __call__(self, inputs: Dict[str, torch.Tensor], rngs: torch.Tensor
+    def __call__(self, inputs: Dict[str, torch.Tensor], rngs: torch.Tensor,
+                 mark: Optional[Callable[[], None]] = None
                  ) -> Dict[str, torch.Tensor]:
+        """Run the plan; ``mark`` is called right after its last launch."""
         with torch.no_grad():
-            return self._fn(inputs, rngs, self.plan.weight_arena)
+            return self._fn(inputs, rngs, self.plan.weight_arena, mark)
 
 
 class EagerPlan(CompiledPlan):

@@ -60,6 +60,10 @@ Two driving modes share the same ``step()`` core:
 * ``start()/submit()/stop()`` — a background dispatcher thread against
   the wall clock, for asynchronous producers.
 
+While tracing is on (``core/spans.py``) the scheduler's stages carry
+spans and each retired dispatch leaves a record keyed by its index in
+``dispatches``.
+
 ``LMScheduler`` (at the end) is the LM's own loop: prefill admission on a
 rung ladder, then batched decode steps over the in-flight requests' KV
 slots, streaming tokens as they retire.
@@ -75,6 +79,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.energy import (CostSignature, Draw, PipelineTimeline,
                                PowerEnvelope, StageCost)
 from repro_torch.core.pipeline import (BatchResult, DispatchTicket,
@@ -603,6 +608,7 @@ class ContinuousBatchingScheduler:
                 return b, draw
         return None, None
 
+    @spans.traced("sched.step")
     def step(self, now: float, force: bool = False
              ) -> Optional[DispatchRecord]:
         """Dispatch at most ONE batch: scan models round-robin from the
@@ -613,7 +619,7 @@ class ContinuousBatchingScheduler:
         regardless of deadlines (used by drain) but still respects the
         envelope. Returns the dispatch record, or None if every queue is
         waiting or deferred."""
-        with self._lock:
+        with spans.span("sched.pick"), self._lock:
             n = len(self._order)
             for k in range(n):
                 name = self._order[(self._rr + k) % n]
@@ -686,6 +692,9 @@ class ContinuousBatchingScheduler:
                     {k: v[i] for k, v in result.outputs.items()},
                     result.keep[i], req.arrival, finished, rung, n_real,
                     req.deadline))
+            if result.span is not None:
+                spans.finish(result.span, len(self.dispatches) - 1, svc.name,
+                             rung, n_real, now)
             return rec
 
     # -- pipelined dispatch -------------------------------------------------
@@ -771,7 +780,7 @@ class ContinuousBatchingScheduler:
             raise
         measured = time.perf_counter() - inf.t0
         service = inf.sig.latency_s if self.clock == "modeled" else measured
-        with self._lock:
+        with spans.span("sched.complete"), self._lock:
             inf.svc.observe_service(inf.backend, inf.rung, service)
             if self.clock != "modeled":
                 # telemetry should report the true dispatch->retirement
@@ -786,6 +795,9 @@ class ContinuousBatchingScheduler:
                     {k: v[i] for k, v in result.outputs.items()},
                     result.keep[i], req.arrival, finished, inf.rung,
                     inf.n_real, req.deadline))
+            if result.span is not None:
+                spans.finish(result.span, inf.rec_idx, inf.svc.name,
+                             inf.rung, inf.n_real, inf.started)
 
     def _drain_inflight(self, keep: int = 0) -> None:
         """Retire oldest-first until at most ``keep`` remain in flight."""
@@ -1050,7 +1062,9 @@ class ContinuousBatchingScheduler:
                     self._thread_error = ex
                     return
                 if rec is None:
-                    time.sleep(poll_s)
+                    with spans.span("sched.idle"):
+                        spans.idle()
+                        time.sleep(poll_s)
 
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name="cb-scheduler")
