@@ -14,10 +14,13 @@ compiled plan, one padded batch per call. The scheduler composes one per
 ladder rung and drives :meth:`execute_batch` (or
 :meth:`execute_batch_async` in pipelined mode).
 
-Synchronization: no path calls ``torch.cuda.synchronize``. A dispatch's
-outputs are copied to the host — which waits for exactly that batch's
-work on the stream — when its :class:`DispatchTicket` retires (traced, the
-host first waits for the dispatch's own event).
+Synchronization: no path calls ``torch.cuda.synchronize``. Each dispatch
+on a card records a completion probe (a plain CUDA event) right after the
+plan's last launch; :meth:`DispatchTicket.done` queries it, so a caller can
+retire a ticket as soon as the card has finished it. A dispatch's outputs
+are copied to the host — which waits for exactly that batch's work on the
+stream — when its :class:`DispatchTicket` retires (traced, the host first
+waits for the dispatch's own timing event).
 """
 from __future__ import annotations
 
@@ -156,16 +159,34 @@ class DispatchTicket:
     n_real: int
     slot: Optional[int]
     span: Optional[spans.Draft] = None
+    probe: Optional[torch.cuda.Event] = None    # None on the CPU
     _result: Optional[BatchResult] = None
 
     @property
     def retired(self) -> bool:
         return self._result is not None
 
+    def done(self) -> bool:
+        """Whether the dispatch's device work has finished, without
+        waiting. Always true on the CPU, where the plan call returns when
+        its work has."""
+        probe = self.probe
+        return probe is None or probe.query()
+
+    def wait(self) -> None:
+        """Block until the dispatch's device work has finished (the GIL is
+        released meanwhile); nothing is copied or retired."""
+        probe = self.probe
+        if probe is not None:
+            probe.synchronize()
+
     def _release(self) -> None:
         if self.slot is not None:
             self.pipeline.arena.release(self.slot)
             self.slot = None
+        if self.probe is not None:
+            self.pipeline._probes.append(self.probe)
+            self.probe = None
         try:
             self.pipeline._inflight.remove(self)
         except ValueError:
@@ -213,6 +234,7 @@ class ServingPipeline:
             self._plan.plan.graph, batch_size, staging_buffers)
         self.arena = HostStagingArena(self.staging, self.device)
         self._inflight: Deque[DispatchTicket] = deque()
+        self._probes: List[torch.cuda.Event] = []  # of retired dispatches
 
     @property
     def cost(self):
@@ -245,17 +267,34 @@ class ServingPipeline:
 
     @spans.traced("plan.dispatch")
     def _dispatch(self, staged: Dict[str, torch.Tensor], rng: np.ndarray,
-                  draft: Optional[spans.Draft] = None
+                  mark: Optional[Callable[[], None]] = None
                   ) -> Tuple[Dict[str, torch.Tensor], np.ndarray]:
         """One plan call, nothing waited for; returns (device outputs,
-        carried-over seed). A traced dispatch's ``draft`` marks the device's
-        stream right after the plan's last launch: the host's own tail after
-        it (tens of us, more under a profiler) is not the device's work."""
+        carried-over seed). ``mark`` marks the device's stream right after
+        the plan's last launch: the host's own tail after it (tens of us,
+        more under a profiler) is not the device's work."""
         seeds = split_seeds(rng, self.batch_size + 1)
         rngs = torch.from_numpy(seeds[1:].astype(np.int64))
-        if draft is None:
+        if mark is None:
             return self._plan(staged, rngs), seeds[0]
-        return self._plan(staged, rngs, draft.mark), seeds[0]
+        return self._plan(staged, rngs, mark), seeds[0]
+
+    def _marker(self, draft: Optional[spans.Draft]
+                ) -> Tuple[Optional[torch.cuda.Event],
+                           Optional[Callable[[], None]]]:
+        """A dispatch's completion probe (None on the CPU) and the mark
+        that records it, after the traced draft's own timing event, on
+        the dispatching thread's stream."""
+        if self.device.type != "cuda":
+            return None, (None if draft is None else draft.mark)
+        probe = self._probes.pop() if self._probes else torch.cuda.Event()
+        stream = torch.cuda.current_stream(self.device)
+
+        def mark() -> None:
+            if draft is not None:
+                draft.mark()
+            probe.record(stream)
+        return probe, mark
 
     def _submit(self, reqs: List[Dict[str, np.ndarray]], rng: np.ndarray
                 ) -> Tuple[DispatchTicket, np.ndarray]:
@@ -265,15 +304,18 @@ class ServingPipeline:
         staged, slot = self._stage(reqs)
         if draft is not None:
             draft.stage1 = time.monotonic_ns()
+        probe, mark = self._marker(draft)
         try:
-            out, carry = self._dispatch(staged, rng, draft)
+            out, carry = self._dispatch(staged, rng, mark)
         except BaseException:
             if slot is not None:        # dispatch failed: slot back to pool
                 self.arena.release(slot)
+            if probe is not None:
+                self._probes.append(probe)
             raise
         if draft is not None:
             draft.launched = time.monotonic_ns()
-        ticket = DispatchTicket(self, out, len(reqs), slot, draft)
+        ticket = DispatchTicket(self, out, len(reqs), slot, draft, probe)
         self._inflight.append(ticket)
         return ticket, carry
 

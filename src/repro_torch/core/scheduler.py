@@ -43,13 +43,15 @@ the keep predicate*.
 ``pipeline=True`` switches dispatch to the ASYNC ticket
 path: ``execute_batch_async`` returns without forcing the outputs, up to
 ``staging_buffers`` dispatches stay in flight (each owning a reusable
-host staging slot), and tickets retire lazily — at slot-pool pressure,
-at every telemetry boundary, and at stream end. EWMA service times are
-observed at ticket retirement. Dispatch DECISIONS are unchanged, and
-under ``clock="modeled"`` pipelined serving is dispatch-for-dispatch and
-bit-exact identical to ``pipeline=False``; the overlap a pipelined
-deployment would realize is priced by a deterministic per-resource
-occupancy ledger (``overlap_report()``).
+host staging slot). The threaded dispatcher retires a ticket, oldest
+first, as soon as its device work has finished (the ticket's completion
+probe); otherwise a ticket retires when a later dispatch needs its slot,
+at every telemetry boundary, and at stream end (``retire_causes`` counts
+each). EWMA service times are observed at ticket retirement. Dispatch
+DECISIONS are unchanged, and under ``clock="modeled"`` pipelined serving
+is dispatch-for-dispatch and bit-exact identical to ``pipeline=False``;
+the overlap a pipelined deployment would realize is priced by a
+deterministic per-resource occupancy ledger (``overlap_report()``).
 
 Two driving modes share the same ``step()`` core:
 
@@ -87,6 +89,10 @@ from repro_torch.core.pipeline import (BatchResult, DispatchTicket,
 
 DEFAULT_LADDER = (1, 4, 16, 32)
 BACKENDS = ("cpu", "flex", "accel")
+# why a dispatch retired: its device work had finished, a later dispatch
+# needed its staging slot, or a sync (telemetry, stop(), end of a trace,
+# or the synchronous path's own wait)
+RETIRE_CAUSES = ("done", "slot", "sync")
 
 
 def capped_ladder(top: int, base: Sequence[int] = DEFAULT_LADDER
@@ -188,6 +194,7 @@ class _Inflight:
     draw: Optional[Draw]
     rec_idx: int                        # index into scheduler.dispatches
     t0: float                           # wall perf_counter at dispatch
+    cause: str = "sync"                 # why it retired: RETIRE_CAUSES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -436,6 +443,7 @@ class ContinuousBatchingScheduler:
         # is capped at staging_buffers (retiring the oldest frees its
         # host slot before a new dispatch would need one)
         self._inflight: Deque[_Inflight] = deque()
+        self.retire_causes: Dict[str, int] = dict.fromkeys(RETIRE_CAUSES, 0)
         self.timeline: Optional[PipelineTimeline] = (
             PipelineTimeline() if pipeline else None)
         self._svcs: Dict[str, _ModelService] = {}
@@ -686,6 +694,7 @@ class ContinuousBatchingScheduler:
                                  backend=backend, energy_j=sig.energy_j,
                                  power_w=sig.power_w)
             self.dispatches.append(rec)
+            self.retire_causes["sync"] += 1
             for i, req in enumerate(reqs):
                 self.completions.append(Completion(
                     req.rid, req.model,
@@ -694,7 +703,7 @@ class ContinuousBatchingScheduler:
                     req.deadline))
             if result.span is not None:
                 spans.finish(result.span, len(self.dispatches) - 1, svc.name,
-                             rung, n_real, now)
+                             rung, n_real, now, "sync")
             return rec
 
     # -- pipelined dispatch -------------------------------------------------
@@ -717,7 +726,7 @@ class ContinuousBatchingScheduler:
         # staging_buffers dispatches in flight — so every pipeline's
         # slot pool can double-buffer instead of falling back to fresh
         # allocations
-        self._drain_inflight(self.staging_buffers - 1)
+        self._drain_inflight(self.staging_buffers - 1, "slot")
         t0 = time.perf_counter()
         try:
             ticket = svc.pipelines[backend][rung].execute_batch_async(
@@ -760,8 +769,9 @@ class ContinuousBatchingScheduler:
     def _retire(self, inf: _Inflight) -> None:
         """Finish one in-flight dispatch: force its outputs (releasing
         the staging slot), observe the EWMA service time from ticket
-        retirement, and emit its completions (FIFO retirement keeps
-        completion order identical to the synchronous path)."""
+        retirement, count ``inf.cause``, and emit its completions (FIFO
+        retirement keeps completion order identical to the synchronous
+        path)."""
         try:
             result = inf.ticket.retire()
         except BaseException:
@@ -782,6 +792,7 @@ class ContinuousBatchingScheduler:
         service = inf.sig.latency_s if self.clock == "modeled" else measured
         with spans.span("sched.complete"), self._lock:
             inf.svc.observe_service(inf.backend, inf.rung, service)
+            self.retire_causes[inf.cause] += 1
             if self.clock != "modeled":
                 # telemetry should report the true dispatch->retirement
                 # service; the virtual clock already advanced by the
@@ -797,15 +808,28 @@ class ContinuousBatchingScheduler:
                     inf.n_real, req.deadline))
             if result.span is not None:
                 spans.finish(result.span, inf.rec_idx, inf.svc.name,
-                             inf.rung, inf.n_real, inf.started)
+                             inf.rung, inf.n_real, inf.started, inf.cause)
 
-    def _drain_inflight(self, keep: int = 0) -> None:
+    def _drain_inflight(self, keep: int = 0, cause: str = "sync") -> None:
         """Retire oldest-first until at most ``keep`` remain in flight."""
         while True:
             with self._lock:
                 if len(self._inflight) <= keep:
                     return
                 inf = self._inflight.popleft()
+            inf.cause = cause
+            self._retire(inf)
+
+    def _retire_finished(self) -> None:
+        """Retire, oldest first, every in-flight dispatch whose device work
+        has finished; stops at the first that has not, so completions keep
+        dispatch order."""
+        while True:
+            with self._lock:
+                if not (self._inflight and self._inflight[0].ticket.done()):
+                    return
+                inf = self._inflight.popleft()
+            inf.cause = "done"
             self._retire(inf)
 
     def sync(self) -> None:
@@ -1057,18 +1081,35 @@ class ContinuousBatchingScheduler:
         def loop():
             while not self._stop.is_set():
                 try:
-                    rec = self.step(time.monotonic())
+                    self._serve_once(poll_s)
                 except BaseException as ex:     # batch re-queued by step()
                     self._thread_error = ex
                     return
-                if rec is None:
-                    with spans.span("sched.idle"):
-                        spans.idle()
-                        time.sleep(poll_s)
 
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name="cb-scheduler")
         self._thread.start()
+
+    def _serve_once(self, poll_s: float) -> None:
+        """One pass of the threaded dispatcher: dispatch at most one batch,
+        then retire what the card has finished. With nothing to dispatch
+        it waits for the oldest ticket's device work, bounded by what
+        remains of one dispatch, or, with nothing in flight, sleeps
+        ``poll_s``."""
+        rec = self.step(time.monotonic())
+        oldest = None
+        if rec is None:
+            with self._lock:
+                if self._inflight:
+                    oldest = self._inflight[0].ticket
+            if oldest is not None:
+                with spans.span("sched.idle"):
+                    oldest.wait()
+        self._retire_finished()
+        if rec is None and oldest is None:
+            with spans.span("sched.idle"):
+                spans.idle()
+                time.sleep(poll_s)
 
     def stop(self, drain: bool = True) -> None:
         """Stop the dispatcher thread; by default flush what's queued.
@@ -1181,6 +1222,9 @@ class ContinuousBatchingScheduler:
                 f"{rep['n_draws']} draws  duty={rep['duty_cycle']:.1%}  "
                 f"max-window={rep['max_window_w']:.2f} W  "
                 f"violations={rep['n_violations']}")
+        if self.pipeline:
+            lines.append("[pipeline] retired " + " ".join(
+                f"{c}={n}" for c, n in self.retire_causes.items()))
         ov = self.overlap_report()
         if ov is not None and ov["n_dispatches"]:
             occ = " ".join(f"{r}:{o:.0%}" for r, o in

@@ -15,7 +15,8 @@ with the device's events:
 ====================  =====================================================
 ``sched.step``        ``ContinuousBatchingScheduler.step``
 ``sched.pick``        its locked decision (queue, rung, backend)
-``sched.idle``        the threaded loop's sleep after an empty poll
+``sched.idle``        the threaded loop after an empty poll: its sleep,
+                      or its wait for the oldest dispatch in flight
 ``sched.complete``    retirement's bookkeeping after the ticket retired:
                       the service estimate, the record, the completions
 ``pipeline.stage``    ``ServingPipeline._stage``: host staging, the copy in
@@ -75,6 +76,9 @@ class DispatchSpan:
     done: int               # the device finished the plan's last operation
     retire0: int            # the ticket's retirement began
     retired: int            # the completions were appended
+    cause: Optional[str]    # why it retired: 'done' (its device work had
+                            # finished), 'slot' (a later dispatch needed
+                            # its staging slot) or 'sync'; None from run()
 
 
 def _synced_anchor(tries: int = 8) -> Tuple[torch.cuda.Event, int]:
@@ -248,14 +252,15 @@ def offset_ns() -> int:
 
 
 def finish(draft: Draft, rec_idx: Optional[int], model: str, rung: int,
-           n_real: int, started: Optional[float] = None) -> None:
+           n_real: int, started: Optional[float] = None,
+           cause: Optional[str] = None) -> None:
     """Freeze a retired dispatch's draft into its record; ``started`` is
-    the scheduler's ``now`` in seconds."""
+    the scheduler's ``now`` in seconds, ``cause`` why it retired."""
     rec = DispatchSpan(
         rec_idx, model, rung, n_real,
         draft.stage0 if started is None else round(started * 1e9),
         draft.stage0, draft.stage1, draft.launched, draft.done,
-        draft.retire0, time.monotonic_ns())
+        draft.retire0, time.monotonic_ns(), cause)
     _records.append((rec, draft._clock, draft.dev_ns))
 
 

@@ -203,3 +203,113 @@ def test_seed_chain_is_deterministic():
     a, b = split_seeds(s, 5), split_seeds(s, 5)
     assert a.shape == (5, 2) and a.dtype == np.uint32
     assert np.array_equal(a, b) and len({tuple(r) for r in a}) == 5
+
+
+# -- retirement on completion (the threaded, pipelined dispatcher) ----------
+
+MODEL = "cnet_plus_scalar"
+
+
+class _Held:
+    """A dispatch ticket whose device work counts as finished only once
+    ``ready`` is set (or the dispatcher has waited on it)."""
+
+    def __init__(self, ticket):
+        self.ticket, self.ready, self.waits = ticket, False, 0
+
+    def done(self):
+        return self.ready
+
+    def wait(self):
+        self.waits += 1
+        self.ready = True
+
+    def retire(self):
+        return self.ticket.retire()
+
+
+def _pipelined(te, staging_buffers=2, ladder=(1,)):
+    s = ContinuousBatchingScheduler(pipeline=True,
+                                    staging_buffers=staging_buffers)
+    s.register(MODEL, te, backend="accel", ladder=ladder, deadline_s=0.05,
+               warmup_sample=_requests(1)[0])
+    return s
+
+
+def _dispatch_held(s, req):
+    """Submit one request, dispatch it at rung 1 and hold its ticket."""
+    s.submit(MODEL, req)
+    assert s.step(time.monotonic()) is not None
+    inf = s._inflight[-1]
+    inf.ticket = _Held(inf.ticket)
+    return inf.ticket
+
+
+@pytest.mark.parametrize("staging_buffers", [1, 2])
+def test_lone_request_is_answered_while_the_dispatcher_idles(
+        engines, staging_buffers):
+    """One request and nothing after it: no later dispatch, ``sync()``,
+    ``telemetry()`` or ``stop()`` retires it, so the dispatcher must retire
+    it once its device work has finished."""
+    _, te = engines
+    s = _pipelined(te, staging_buffers, ladder=LADDER)
+    s.start(poll_s=0.0005)
+    try:
+        s.submit(MODEL, _requests(1, seed=6)[0])
+        t_end = time.monotonic() + 1.0
+        while not s.completions and time.monotonic() < t_end:
+            time.sleep(0.002)
+        assert [c.rid for c in s.completions] == [0]
+        assert s.retire_causes["done"] >= 1
+    finally:
+        s.stop()
+    assert s.retire_causes["slot"] == 0
+    assert "[pipeline] retired done=1 slot=0 sync=0" in s.summary()
+
+
+def test_idle_dispatcher_waits_on_the_oldest_dispatch_not_the_poll(engines):
+    """With nothing to dispatch and a dispatch in flight, one pass of the
+    loop waits for that dispatch's device work and retires it, without
+    sleeping its poll interval first."""
+    _, te = engines
+    s = _pipelined(te)
+    held = _dispatch_held(s, _requests(1, seed=7)[0])
+    t0 = time.monotonic()
+    s._serve_once(poll_s=5.0)
+    assert time.monotonic() - t0 < 2.5
+    assert held.waits == 1 and [c.rid for c in s.completions] == [0]
+    assert s.retire_causes == {"done": 1, "slot": 0, "sync": 0}
+
+
+def test_finished_dispatches_retire_in_dispatch_order(engines):
+    """A finished dispatch behind an unfinished one waits for it, then
+    both retire, oldest first."""
+    _, te = engines
+    s = _pipelined(te, staging_buffers=3)
+    held = [_dispatch_held(s, r) for r in _requests(2, seed=8)]
+    held[1].ready = True
+    s._retire_finished()
+    assert s.completions == [] and len(s._inflight) == 2
+    held[0].ready = True
+    s._retire_finished()
+    assert [c.rid for c in s.completions] == [0, 1] and not s._inflight
+    assert s.retire_causes == {"done": 2, "slot": 0, "sync": 0}
+
+
+def test_slot_pressure_retires_what_the_card_has_not_finished(engines):
+    """Dispatches whose device work never reads finished still retire when
+    a later dispatch needs their staging slot, so no dispatch stages into a
+    fresh allocation; the last two retire at the sync."""
+    _, te = engines
+    s = _pipelined(te, staging_buffers=2)
+    for r in _requests(5, seed=12):
+        _dispatch_held(s, r)
+        s._retire_finished()
+    assert len(s._inflight) == 2
+    assert s.retire_causes == {"done": 0, "slot": 3, "sync": 0}
+    s.sync()
+    assert s.retire_causes == {"done": 0, "slot": 3, "sync": 2}
+    assert [c.rid for c in s.completions] == list(range(5))
+    pipes = s._svcs[MODEL].pipelines["accel"].values()
+    assert sum(p.arena.n_fallback for p in pipes) == 0
+    assert all(p.arena.n_free == p.arena.n_slots for p in pipes)

@@ -137,6 +137,9 @@ def test_traced_threaded_run_records_each_dispatch(engine, pipelined):
                 ), r
         assert r.retire0 <= r.retired, r
         assert r.done == r.launched     # the CPU: the plan call's return
+        # the CPU's work is finished when the plan call returns, so the
+        # pipelined dispatcher retires each dispatch at once
+        assert r.cause == ("done" if pipelined else "sync"), r
     assert sum(r.n_real for r in recs) == 9
 
 
@@ -148,7 +151,8 @@ def test_standalone_run_records_each_batch(engine):
     recs = spans.records()
     assert [r.n_real for r in recs] == [4, 4, 2]
     for r in recs:
-        assert (r.rec_idx, r.model, r.rung) == (None, MODEL, 4)
+        assert (r.rec_idx, r.model, r.rung, r.cause) == (None, MODEL, 4,
+                                                          None)
         assert r.started == r.stage0 <= r.stage1 <= r.launched <= r.done
         assert r.done <= r.retire0 <= r.retired
 
@@ -335,3 +339,41 @@ def test_done_agrees_with_the_profiler(card):
           f"its launch call: min {min(lag) / 1e3:.2f} median "
           f"{np.median(lag) / 1e3:.2f} us; {torch.cuda.get_device_name(0)}")
     assert report[0] >= 0.95 * len(recs)
+
+
+@pytest.mark.gpu
+def test_single_frames_retire_when_the_card_finishes(card):
+    """Full-width CNet served one frame a dispatch by the threaded
+    dispatcher, with idle gaps between frames: each dispatch retires once
+    the card has finished it, not when a later one needs its slot, so the
+    median of ``retire0 - done`` is under 1 ms."""
+    g = tcnet.build_graph()
+    e = Engine(g, tcnet.init_params(3), device=card)
+    shape = g.graph_inputs["image"]
+    e.calibrate(_requests(4, seed=3, shape=shape))
+    s = ContinuousBatchingScheduler(pipeline=True)
+    s.register(MODEL, e, backend="accel", ladder=(1,), deadline_s=2.0,
+               warmup_sample=_requests(1, seed=1, shape=shape)[0])
+    frames = _requests(8, seed=11, shape=shape)
+    n = 200
+    spans.enable(card)
+    s.start()
+    for i in range(n):
+        s.submit(MODEL, frames[i % len(frames)])
+        time.sleep(0.005)
+    t_end = time.monotonic() + 10
+    while len(s.completions) < n and time.monotonic() < t_end:
+        time.sleep(0.005)
+    answered = len(s.completions)
+    s.stop()
+    spans.disable()
+    recs = spans.records()
+    lag = np.array([r.retire0 - r.done for r in recs]) / 1e6
+    causes = {c: sum(r.cause == c for r in recs) for c in ("done", "slot",
+                                                           "sync")}
+    print(f"retire0 - done: median {np.median(lag):.3f} ms, p95 "
+          f"{np.percentile(lag, 95):.3f} ms over {len(recs)} dispatches; "
+          f"causes {causes}; {torch.cuda.get_device_name(0)}")
+    assert answered == n and len(recs) == n
+    assert np.median(lag) < 1.0
+    assert causes["done"] >= 0.9 * n
