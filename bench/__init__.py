@@ -3,6 +3,7 @@
 ``bench/run.py`` is the one command; ``BENCHMARK.json`` at the repository
 root names the cells, configurations and metrics, and the harness finds
 the files of each by name: ``configs/<config>.json``, ``reference/
-<config>.py``, ``traffic/<traffic>.json``, ``metrics/<metric>.py`` and
+<config>.py``, ``systems/<system>.py`` (the served system a configuration
+names), ``traffic/<traffic>.json``, ``metrics/<metric>.py`` and
 ``counts/<op>.py``. Nothing here imports JAX or the JAX package.
 """

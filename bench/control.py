@@ -10,9 +10,10 @@ card, as ``bench/run.py`` does, and prints one JSON line with the
 program's gaps against the int8 reference (the sound readings, the lower
 ends of the limits) and the control's: the reference computed in int4,
 the precision below the configuration's, in the program's place, on the
-same sampled requests (the upper ends). ``--device cpu`` runs the
-program's plain kernels on the CPU, with ``--narrow`` at the CPU tests'
-widths.
+same sampled requests (the upper ends). The configuration's system
+(``systems/<system>.py``) serves, compares and computes the control.
+``--device cpu`` runs the program's plain kernels on the CPU, with
+``--narrow`` at the CPU tests' widths.
 """
 import argparse
 import json
@@ -46,18 +47,19 @@ def readings(manifest, cell, seed: int, seconds: float, device,
     cfg.update(overrides or {})
     traffic = manifest.traffic(cell["traffic"])
     traffic.update(traffic_overrides or {})
-    ref = harness.reference(cell["config"])
-    system = harness.System(cfg, ref, traffic["ladder"], seed, device)
+    ref = harness.reference(cell["config"], manifest.root)
+    served = harness.system(cfg, manifest.root)
+    system = served.build(cfg, ref, traffic, seed, device)
     harness.settle()
     harness.LOOPS[traffic["loop"]](system, traffic, seconds, seed, None)
     harness.unsettle()
     reqs = sorted(system.reqs.values(), key=lambda r: r.rid)
     outputs = system.outputs()
-    system.sched = system.engine = None
+    system.release()
     del system
-    numbers, _ = check.compare(cfg, ref, seed, device, reqs, outputs)
+    numbers, _ = served.compare(cfg, ref, seed, device, reqs, outputs)
     picked = check.sample(reqs, cfg["check"]["sample"], seed)
-    ctl = check.control(cfg, ref, seed, device, picked)
+    ctl = served.control(cfg, ref, seed, device, picked)
     return ({k: v for k, (v, _) in numbers.items()}, ctl, len(picked))
 
 

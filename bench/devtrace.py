@@ -18,9 +18,8 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
-SPAN_PREFIXES = ("sched.", "pipeline.", "plan.")
 IDLE_LABEL = "no span: dispatcher polling or between calls"
 
 
@@ -112,11 +111,12 @@ def _ns(ev, what: str) -> int:
 
 
 def reduce(prof, start_ns: int, end_ns: int, wall_s: float,
-           rungs: List[Tuple[int, int]]) -> TraceData:
+           rungs: List[Tuple[int, int]], labels: Set[str]) -> TraceData:
     """Plain records from a stopped ``torch.profiler.profile``, clipped to
     the stretch ``[start_ns, end_ns]`` of the profiler's clock (the host's
-    wall clock in ns). The spans' own annotations on the device timeline
-    are left out: they are not device work."""
+    wall clock in ns); host events named by ``labels`` are the spans. The
+    spans' own annotations on the device timeline are left out: they are
+    not device work."""
     import torch
     device, spans = [], []
     for ev in prof.profiler.kineto_results.events():
@@ -126,7 +126,7 @@ def reduce(prof, start_ns: int, end_ns: int, wall_s: float,
         s, e = max(start, start_ns), min(end, end_ns)
         if e < s or (e == s and end > start):
             continue
-        if name.startswith(SPAN_PREFIXES):
+        if name in labels:
             if ev.device_type() != torch.autograd.DeviceType.CUDA:
                 spans.append(HostSpan(name, s, e))
         elif ev.device_type() == torch.autograd.DeviceType.CUDA:
@@ -134,17 +134,41 @@ def reduce(prof, start_ns: int, end_ns: int, wall_s: float,
     return TraceData(device, spans, wall_s, rungs)
 
 
+@dataclasses.dataclass
+class Hooks:
+    """What a served system lets a :class:`Tracer` wrap and slice.
+
+    ``step`` is ``(object, method name)``: the call that issues every
+    device operation, made again and again while the system serves, idle
+    or not. On the thread for which ``on_thread()`` is true the profiler
+    starts and stops inside it, and while the profiler records
+    each such call is a span named ``step_label``. ``spans`` are further
+    ``(object, method name, label)`` calls that are spans while it
+    records. ``dispatches()`` returns the system's dispatch records so far
+    (each with ``rung`` and ``n_real``), which the Tracer slices to the
+    traced stretch."""
+    step: Tuple[Any, str]
+    step_label: str
+    on_thread: Callable[[], bool]
+    spans: List[Tuple[Any, str, str]]
+    dispatches: Callable[[], list]
+
+    @property
+    def labels(self) -> Set[str]:
+        return {self.step_label} | {label for _, _, label in self.spans}
+
+
 class Tracer:
     """Profiles one stretch of the window, from :meth:`request_start` (the
-    dispatcher thread's next step starts the profiler) to :meth:`mark_end`
-    (the window's close). The profiler stops at :meth:`request_stop`,
-    after the window, so that reading out its events holds up nothing the
-    window measures."""
+    system's next step on its dispatching thread starts the profiler) to
+    :meth:`mark_end` (the window's close). The profiler stops at
+    :meth:`request_stop`, after the window, so that reading out its events
+    holds up nothing the window measures."""
 
-    def __init__(self, sched):
+    def __init__(self, system):
         import torch
         self._torch = torch
-        self.sched = sched
+        self.hooks = hooks = system.trace_hooks()
         self._want: Optional[str] = None
         self._lock = threading.Lock()
         self.prof = None
@@ -154,31 +178,22 @@ class Tracer:
         self.t_start = self.t_end = 0.0
         self.ns_start = self.ns_end = 0
         self.d_start = self.d_end = 0
-        orig = sched.step
+        rf = torch.profiler.record_function
+        obj, attr = hooks.step
+        orig = getattr(obj, attr)
 
-        def step(now, force=False):
-            if threading.current_thread() is not sched._thread:
-                return orig(now, force)
+        def step(*args, **kwargs):
+            if not hooks.on_thread():
+                return orig(*args, **kwargs)
             self._poll()
             if not self.active:
-                return orig(now, force)
-            with torch.profiler.record_function("sched.step"):
-                return orig(now, force)
+                return orig(*args, **kwargs)
+            with rf(hooks.step_label):
+                return orig(*args, **kwargs)
 
-        sched.step = step
-        self._wrap_pipelines()
-
-    def _wrap_pipelines(self) -> None:
-        rf = self._torch.profiler.record_function
-        for svc in self.sched._svcs.values():
-            for rungs in svc.pipelines.values():
-                for pipe in rungs.values():
-                    for attr, label in (("_stage", "pipeline.stage"),
-                                        ("_dispatch", "plan.dispatch"),
-                                        ("_unstage", "pipeline.unstage"),
-                                        ("_keep", "pipeline.keep")):
-                        setattr(pipe, attr, self._span(
-                            getattr(pipe, attr), label, rf))
+        setattr(obj, attr, step)
+        for obj, attr, label in hooks.spans:
+            setattr(obj, attr, self._span(getattr(obj, attr), label, rf))
 
     def _span(self, fn: Callable, label: str, rf) -> Callable:
         def wrapped(*a, **k):
@@ -195,7 +210,7 @@ class Tracer:
         if self.started.is_set() and not self.ns_end:
             self.ns_end = time.time_ns()
             self.t_end = time.monotonic()
-            self.d_end = len(self.sched.dispatches)
+            self.d_end = len(self.hooks.dispatches())
 
     def request_stop(self) -> None:
         with self._lock:
@@ -221,7 +236,7 @@ class Tracer:
             self.prof.start()
             self.ns_start = time.time_ns()
             self.t_start = time.monotonic()
-            self.d_start = len(self.sched.dispatches)
+            self.d_start = len(self.hooks.dispatches())
             self.active = True
             self.started.set()
         elif self._want == "stop" and self.active:
@@ -231,10 +246,10 @@ class Tracer:
             self.done.set()
 
     def data(self) -> TraceData:
-        recs = self.sched.dispatches[self.d_start:self.d_end]
+        recs = self.hooks.dispatches()[self.d_start:self.d_end]
         return reduce(self.prof, self.ns_start, self.ns_end,
                       self.t_end - self.t_start,
-                      [(r.rung, r.n_real) for r in recs])
+                      [(r.rung, r.n_real) for r in recs], self.hooks.labels)
 
 
 def warm_profiler() -> None:

@@ -3,14 +3,13 @@ traffic for the window, read the metrics, check the answers.
 
 Everything a cell needs is found by name from ``BENCHMARK.json``: the
 configuration's file (``configs/<config>.json``) and plain reference
-(``reference/<config>.py``), the traffic's parameters
+(``reference/<config>.py``), the served system the configuration names
+(``systems/<system>.py``), the traffic's parameters
 (``traffic/<traffic>.json``), one reader per metric
 (``metrics/<metric>.py``) and the operation counts per layer kind
-(``counts/<op>.py``). The program under test is the scheduler of
-``repro_torch``, driven through ``start()``, ``submit()`` and ``stop()``
-as a deployment drives it; the benchmark wraps the scheduler's ticket
-retirement to time each answer on the host and, in the closed loop, to
-submit the next frame.
+(``counts/<op>.py``). The loops drive the system through ``start()``,
+``submit()`` and ``stop()`` as a deployment drives it, and time each
+answer on the host when the system reports it ready.
 """
 from __future__ import annotations
 
@@ -20,10 +19,11 @@ import importlib
 import importlib.util
 import json
 import math
+import sys
 import threading
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -74,15 +74,27 @@ class Manifest:
                 if "workloads" not in m or cell in m["workloads"]]
 
 
-def reference(config: str):
-    return importlib.import_module(f"bench.reference.{config}")
-
-
 def _load_file(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    # registered first, as an import would, so that its dataclasses resolve
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def reference(config: str, root: Path = ROOT):
+    """The configuration's plain reference, ``reference/<config>.py``."""
+    return _load_file(root / "bench" / "reference" / f"{config}.py",
+                      "bench_reference_" + config.replace(".", "_"))
+
+
+def system(cfg: Dict[str, Any], root: Path = ROOT):
+    """The module of the system the configuration names,
+    ``systems/<system>.py`` (the contract is ``systems/__init__.py``)."""
+    name = cfg["system"]
+    return _load_file(root / "bench" / "systems" / f"{name}.py",
+                      "bench_system_" + name.replace(".", "_"))
 
 
 def metric_reader(name: str):
@@ -112,7 +124,7 @@ def handwritten_kernels() -> List[Dict[str, Any]]:
 
 
 # ---------------------------------------------------------------------------
-# Inputs and weights from the seed
+# Seeds
 # ---------------------------------------------------------------------------
 
 
@@ -128,55 +140,8 @@ def generator(seed: int, device) -> torch.Generator:
     return g
 
 
-def make_params(shapes, seed: int, device, bias_std: float):
-    """Every parameter the configuration names, from one draw on the
-    device: He-normal conv weights (HWIO), LeCun-normal dense weights
-    ([in, out]), biases normal at ``bias_std``."""
-    sizes = [(node, part, tuple(shape)) for node, sh in shapes.items()
-             for part, shape in sh.items()]
-    total = sum(math.prod(s) for _, _, s in sizes)
-    flat = torch.randn(total, generator=generator(seed, device),
-                       device=device)
-    params: Dict[str, Dict[str, torch.Tensor]] = {}
-    off = 0
-    for node, part, shape in sizes:
-        n = math.prod(shape)
-        v = flat[off:off + n].view(shape)
-        off += n
-        if part == "w":
-            gain = 2.0 if len(shape) == 4 else 1.0
-            v = v * math.sqrt(gain / math.prod(shape[:-1]))
-        else:
-            v = v * bias_std
-        params.setdefault(node, {})[part] = v
-    return params
-
-
-@dataclasses.dataclass
-class Inputs:
-    """What one seed makes, on ``device`` and as host arrays."""
-    params: Dict[str, Dict[str, torch.Tensor]]
-    calib: Dict[str, torch.Tensor]
-    pool: Dict[str, torch.Tensor]
-
-    def host(self):
-        return ({k: v.cpu().numpy() for k, v in self.calib.items()},
-                {k: v.cpu().numpy() for k, v in self.pool.items()})
-
-
-def make_inputs(cfg, ref, seed: int, device) -> Inputs:
-    s_par, s_cal, s_pool = stream_seeds(seed, 3)
-    params = make_params(ref.param_shapes(cfg), s_par, device,
-                         cfg["bias_std"])
-    calib = ref.frames(generator(s_cal, device), cfg["calibration_frames"],
-                       cfg, device)
-    pool = ref.frames(generator(s_pool, device), cfg["pool_frames"], cfg,
-                      device)
-    return Inputs(params, calib, pool)
-
-
 # ---------------------------------------------------------------------------
-# The system under test
+# A request
 # ---------------------------------------------------------------------------
 
 
@@ -192,97 +157,6 @@ class Req:
     row: Optional[int] = None
     rung: Optional[int] = None
     tail: bool = False
-
-
-class System:
-    """The served model: an ``Engine`` calibrated on the configuration's
-    calibration frames and registered with a pipelined
-    ``ContinuousBatchingScheduler`` as ``launch/serve.build_scheduler``
-    registers it (keep predicate, warm-up sample, the launcher's default
-    of pipelined dispatch over 2 staging buffers)."""
-
-    def __init__(self, cfg, ref, ladder, seed: int, device):
-        from repro_torch.core.engine import Engine
-        from repro_torch.core.scheduler import ContinuousBatchingScheduler
-        from repro_torch.launch.serve import KEEP_PREDICATES
-        from repro_torch.models import SPACE_MODELS
-
-        self.cfg, self.model, self.device = cfg, cfg["model"], device
-        inputs = make_inputs(cfg, ref, seed, device)
-        calib, self.pool = inputs.host()
-        self.n_pool = cfg["pool_frames"]
-        graph = SPACE_MODELS[self.model].build_graph(**cfg["build_args"])
-        check_shapes(graph, ref.param_shapes(cfg))
-        self.engine = Engine(graph, inputs.params, device=device,
-                             ptq_demote_threshold=cfg["ptq_demote_threshold"])
-        calib_reqs = [{k: v[i] for k, v in calib.items()}
-                      for i in range(cfg["calibration_frames"])]
-        self.engine.calibrate(calib_reqs)
-        self.sched = ContinuousBatchingScheduler(pipeline=True,
-                                                 staging_buffers=2)
-        self.sched.register(self.model, self.engine,
-                            backend=(cfg["backend"],), ladder=tuple(ladder),
-                            deadline_s=cfg["deadline_s"],
-                            keep_predicate=KEEP_PREDICATES.get(self.model),
-                            warmup_sample=calib_reqs[0])
-        self.deadline_s = cfg["deadline_s"]
-        self.reqs: Dict[int, Req] = {}
-        self.on_answers: Optional[Callable[[int, float], None]] = None
-        # a request's record exists before its retirement can look for it
-        self._lock = threading.Lock()
-        self._wrap_retire()
-
-    def _wrap_retire(self) -> None:
-        orig = self.sched._retire
-
-        def retire(inf):
-            orig(inf)
-            t = time.monotonic()
-            with self._lock:
-                for row, r in enumerate(inf.reqs):
-                    q = self.reqs[r.rid]
-                    q.answered, q.dispatched = t, inf.started
-                    q.rec_idx, q.row, q.rung = inf.rec_idx, row, inf.rung
-            cb = self.on_answers
-            if cb is not None:
-                cb(len(inf.reqs), t)
-
-        self.sched._retire = retire
-
-    def frame(self, k: int) -> Dict[str, np.ndarray]:
-        """A fresh request dict over pool frame ``k mod pool``."""
-        i = k % self.n_pool
-        return {name: v[i] for name, v in self.pool.items()}
-
-    def submit(self, k: int, due: float, tail: bool = False) -> Req:
-        with self._lock:
-            rid = self.sched.submit(self.model, self.frame(k), arrival=due)
-            req = Req(rid, k % self.n_pool, due, time.monotonic(), tail=tail)
-            self.reqs[rid] = req
-        return req
-
-    def outputs(self) -> Dict[int, Dict[str, np.ndarray]]:
-        return {c.rid: c.outputs for c in self.sched.completions}
-
-
-def check_shapes(graph, shapes) -> None:
-    """The program's graph must name exactly the reference's parameters."""
-    got = {}
-    for name in graph.order:
-        node = graph.nodes[name]
-        if node.op in ("conv2d", "dense"):
-            cout = node.attrs["features"]
-            if node.op == "conv2d":
-                kh, kw = node.attrs["kernel"]
-                cin = graph.nodes[node.inputs[0]].out_shape[-1]
-                got[name] = {"w": (kh, kw, cin, cout), "b": (cout,)}
-            else:
-                fin = int(np.prod(graph.nodes[node.inputs[0]].out_shape))
-                got[name] = {"w": (fin, cout), "b": (cout,)}
-    want = {n: {k: tuple(v) for k, v in s.items()} for n, s in shapes.items()}
-    if got != want:
-        raise ValueError(f"the program's layers {got} are not the "
-                         f"configuration's {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +182,7 @@ def _wait_until(t: float) -> None:
         time.sleep(min(d, 0.05))
 
 
-def closed_loop(system: System, traffic, seconds: float, seed: int,
+def closed_loop(system, traffic, seconds: float, seed: int,
                 energy, tracer=None) -> Window:
     """``outstanding`` frames in flight: each answer inside the window
     submits the next frame at once. At the close the recorder's buffer
@@ -330,7 +204,7 @@ def closed_loop(system: System, traffic, seconds: float, seed: int,
                 next_frame(t)
 
     system.on_answers = on_answers
-    system.sched.start()
+    system.start()
     if energy is not None:
         energy.begin()
     t0 = time.monotonic()
@@ -356,12 +230,12 @@ def closed_loop(system: System, traffic, seconds: float, seed: int,
     if tracer is not None:
         tracer.request_stop()
         tracer.done.wait(timeout=30)
-    system.sched.stop(drain=True)
+    system.stop()
     system.on_answers = None
     return Window(t0, t1, energy_j, in_flight_at_close=in_flight)
 
 
-def open_loop(system: System, traffic, seconds: float, seed: int,
+def open_loop(system, traffic, seconds: float, seed: int,
               energy, tracer=None) -> Window:
     """Poisson arrivals at the traffic's fixed rate, each request timed
     from when it was due. Arrivals go on after the close until every
@@ -370,8 +244,7 @@ def open_loop(system: System, traffic, seconds: float, seed: int,
     dispatches retire it."""
     rate = float(traffic["rate_hz"])
     grace = system.deadline_s + 1.0
-    offsets = loads.fixed_set_poisson(
-        rate, int(math.ceil(rate * (seconds + grace))) + 1, seed)
+    offsets = loads.window_arrivals(rate, seconds, grace, seed)
     stop = threading.Event()
     t0_box: Dict[str, float] = {}
     ready = threading.Event()
@@ -392,7 +265,7 @@ def open_loop(system: System, traffic, seconds: float, seed: int,
 
     thread = threading.Thread(target=gen, name="bench-arrivals", daemon=True)
     thread.start()
-    system.sched.start()
+    system.start()
     if energy is not None:
         energy.begin()
     t0 = time.monotonic()
@@ -416,7 +289,7 @@ def open_loop(system: System, traffic, seconds: float, seed: int,
     if tracer is not None:
         tracer.request_stop()
         tracer.done.wait(timeout=30)
-    system.sched.stop(drain=True)
+    system.stop()
     lat = np.array([r.submitted - r.due for r in list(system.reqs.values())
                     if r.due < t1] or [0.0])
     return Window(t0, t1, energy_j,

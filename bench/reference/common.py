@@ -1,4 +1,4 @@
-"""What the plain references share: NHWC helpers, post-training
+"""What the plain references share: NHWC and NDHWC helpers, post-training
 quantization written out from its definition, and the served key chain.
 
 Quantization, as the configurations state it: per-output-channel
@@ -47,15 +47,32 @@ def conv(x: torch.Tensor, w_hwio: torch.Tensor, stride: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def conv3d(x: torch.Tensor, w_dhwio: torch.Tensor, stride: int
+           ) -> torch.Tensor:
+    """SAME convolution of NDHWC ``x`` with DHWIO weights, no bias; NDHWC
+    out, the odd plane, row and column of padding at the end."""
+    pads = []
+    for size, k in zip(reversed(x.shape[1:4]), reversed(w_dhwio.shape[:3])):
+        out = -(-size // stride)
+        total = max((out - 1) * stride + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    y = F.conv3d(F.pad(x, [0, 0] + pads).permute(0, 4, 1, 2, 3),
+                 w_dhwio.permute(4, 3, 0, 1, 2), stride=stride)
+    return y.permute(0, 2, 3, 4, 1)
+
+
 def maxpool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 max-pool, stride 2, of NHWC ``x``."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
 def _apply(w: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Tensor:
-    """The layer's linear part: a conv for 4-D weights, else x @ w."""
+    """The layer's linear part: a conv for 4-D (HWIO) weights, a 3-D conv
+    for 5-D (DHWIO) weights, else x @ w."""
     if w.ndim == 4:
         return conv(x, w, stride)
+    if w.ndim == 5:
+        return conv3d(x, w, stride)
     return x @ w
 
 

@@ -54,7 +54,8 @@ def run_cell(manifest, cell, seed: int, seconds: float, trace: bool,
     cfg.update(overrides or {})
     traffic = manifest.traffic(cell["traffic"])
     traffic.update(traffic_overrides or {})
-    ref = harness.reference(cell["config"])
+    ref = harness.reference(cell["config"], manifest.root)
+    served = harness.system(cfg, manifest.root)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     if on_card:
@@ -67,15 +68,15 @@ def run_cell(manifest, cell, seed: int, seconds: float, trace: bool,
     else:
         kind, src = "cpu", energy_source
     try:
-        return _run(manifest, cell, cfg, traffic, ref, dev, on_card, kind,
-                    src, seed, seconds, trace, t_start)
+        return _run(manifest, cell, cfg, traffic, ref, served, dev, on_card,
+                    kind, src, seed, seconds, trace, t_start)
     finally:
         if src is not None and energy_source is None:
             src.close()
 
 
-def _run(manifest, cell, cfg, traffic, ref, dev, on_card, kind, src, seed,
-         seconds, trace, t_start):
+def _run(manifest, cell, cfg, traffic, ref, served, dev, on_card, kind, src,
+         seed, seconds, trace, t_start):
     limit = src.power_limit_w() if src is not None else None
     _say(f"device {kind}, {torch.cuda.device_count() if on_card else 0} "
          f"card(s) visible, {cell['chips']} used, power limit "
@@ -83,12 +84,12 @@ def _run(manifest, cell, cfg, traffic, ref, dev, on_card, kind, src, seed,
     _say(f"energy source {getattr(src, 'name', 'none')}")
     peaks = harness.peaks(kind)
 
-    system = harness.System(cfg, ref, traffic["ladder"], seed, dev)
+    system = served.build(cfg, ref, traffic, seed, dev)
     tracer = None
     if trace:
         if on_card:
             devtrace.warm_profiler()
-        tracer = devtrace.Tracer(system.sched)
+        tracer = devtrace.Tracer(system)
     harness.settle()
     window = harness.LOOPS[traffic["loop"]](system, traffic, seconds, seed,
                                             src, tracer)
@@ -121,12 +122,12 @@ def _run(manifest, cell, cfg, traffic, ref, dev, on_card, kind, src, seed,
                  if r.answered is None or r.answered - r.due > run.deadline_s)
 
     outputs = system.outputs()
-    system.sched = system.engine = None
+    system.release()
     del system, tracer
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    numbers, demoted = check.compare(cfg, ref, seed, dev, reqs, outputs)
+    numbers, demoted = served.compare(cfg, ref, seed, dev, reqs, outputs)
     # a layer the demotion gate kept in fp32 runs at fp32 in the plan
     run.layers = [dict(x, precision="fp32") if x["name"] in demoted else x
                   for x in run.layers]

@@ -40,8 +40,8 @@ def main(argv=None) -> int:
     cfg = m.config(cell["config"])
     traffic = m.traffic(cell["traffic"])
     ref = harness.reference(cell["config"])
-    system = harness.System(cfg, ref, traffic["ladder"], args.seed,
-                            torch.device("cuda"))
+    system = harness.system(cfg).build(cfg, ref, traffic, args.seed,
+                                       torch.device("cuda"))
     harness.settle()
     for rate in (float(r) for r in args.rates.split(",")):
         system.reqs = {}

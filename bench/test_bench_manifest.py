@@ -7,6 +7,7 @@ import ast
 import json
 import re
 import shutil
+import time
 from pathlib import Path
 
 import pytest
@@ -81,9 +82,97 @@ def test_cell_resolves_by_name(cell):
         assert c.ops(layer, 2) >= c.mac_ops(layer, 2) >= 0
 
 
+ECHO_SYSTEM = '''"""A served system that answers each request with its frame index."""
+import time
+
+import numpy as np
+
+from bench import devtrace, harness
+
+
+class Echo:
+    def __init__(self, cfg):
+        self.n_pool = cfg["pool_frames"]
+        self.deadline_s = cfg["deadline_s"]
+        self.reqs, self.answers, self.on_answers = {}, {}, None
+        self.served = []
+
+    def submit(self, k, due, tail=False):
+        req = harness.Req(len(self.reqs), k % self.n_pool, due,
+                          time.monotonic(), tail=tail)
+        self.reqs[req.rid] = req
+        self.serve(req)
+        return req
+
+    def serve(self, req):
+        self.answers[req.rid] = {"echo": np.array([float(req.frame)])}
+        self.served.append(req)
+        req.answered = time.monotonic()
+        if self.on_answers is not None:
+            self.on_answers(1, req.answered)
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def outputs(self):
+        return self.answers
+
+    def release(self):
+        pass
+
+    def trace_hooks(self):
+        return devtrace.Hooks(step=(self, "serve"), step_label="echo.serve",
+                              on_thread=lambda: True, spans=[],
+                              dispatches=lambda: self.served)
+
+
+def build(cfg, ref, traffic, seed, device):
+    return Echo(cfg)
+
+
+def compare(cfg, ref, seed, device, reqs, outputs):
+    missing = sum(1 for r in reqs if r.rid not in outputs)
+    wrong = sum(1 for r in reqs if r.rid in outputs
+                and outputs[r.rid]["echo"][0] != r.frame)
+    return {"answers_missing": [missing, 0], "echo_wrong": [wrong, 0]}, set()
+
+
+def control(cfg, ref, seed, device, picked):
+    return {"echo_wrong": len(picked)}
+'''
+
+
+def _add_echo_cell(root: Path, data) -> None:
+    """The files and manifest entries of a new system, its configuration,
+    its reference and its cell, written under ``root``."""
+    bench = root / "bench"
+    for sub in ("systems", "reference", "configs", "traffic"):
+        (bench / sub).mkdir(parents=True, exist_ok=True)
+    (bench / "systems" / "echo.py").write_text(ECHO_SYSTEM)
+    (bench / "reference" / "echo.py").write_text(
+        'OUTPUTS = ("echo",)\n\n\ndef layers(cfg):\n    return []\n')
+    (bench / "configs" / "echo.json").write_text(json.dumps(
+        {"name": "echo", "system": "echo", "pool_frames": 8,
+         "deadline_s": 0.5}))
+    (bench / "traffic" / "echo_open.json").write_text(json.dumps(
+        {"loop": "open", "rate_hz": 200, "ladder": [1],
+         "trace_seconds": 0.2}))
+    data["configs"].append({"name": "echo", "source": "a test system",
+                            "file": "bench/configs/echo.json",
+                            "reduced": [], "why": "a test system"})
+    data["workloads"].append({"name": "echo.open", "config": "echo",
+                              "traffic": "echo_open", "chips": 1,
+                              "why": "a test cell"})
+
+
 def test_a_new_cell_needs_only_new_files(tmp_path):
     """A cell, a traffic mix and a configuration added as files and
-    manifest entries are found by name, with no file edited."""
+    manifest entries are found by name, with no file edited; so is a new
+    served system, which runs its cell end to end."""
+    from bench import run as bench_run
     shutil.copytree(BENCH / "configs", tmp_path / "bench" / "configs")
     shutil.copytree(BENCH / "traffic", tmp_path / "bench" / "traffic")
     data = json.loads(json.dumps(MANIFEST))
@@ -101,6 +190,9 @@ def test_a_new_cell_needs_only_new_files(tmp_path):
                               "config": "vae_encoder_b",
                               "traffic": "stream1200", "chips": 1,
                               "why": "a test cell"})
+    # a new cell joins the list of cells of a metric it reports
+    p95 = next(x for x in data["end_to_end"] if x["name"] == "latency_p95_ms")
+    p95["workloads"] += ["vae.stream1200", "echo.open"]
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
     m = harness.Manifest(tmp_path)
     w = m.workload("vae.stream1200")
@@ -110,6 +202,16 @@ def test_a_new_cell_needs_only_new_files(tmp_path):
     assert {x["name"] for x in m.metrics("vae.stream1200", "end_to_end")} \
         == {"setup_s", "latency_p95_ms"}
 
+    _add_echo_cell(tmp_path, data)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(data))
+    m = harness.Manifest(tmp_path)
+    r = bench_run.run_cell(m, m.workload("echo.open"), 2 ** 31 + 21, 0.3,
+                           False, device="cpu", t_start=time.monotonic())
+    assert r["correct"], r["check"]
+    assert r["attempted"] > 0 and r["failed"] == 0
+    assert set(r["check"]) == {"answers_missing", "echo_wrong"}
+    assert set(r["metrics"]) == {"setup_s", "latency_p95_ms"}
+
 
 @pytest.mark.parametrize("config", [c["name"] for c in MANIFEST["configs"]])
 def test_reference_layers_are_the_programs(config):
@@ -118,7 +220,7 @@ def test_reference_layers_are_the_programs(config):
     cfg = m.config(config)
     ref = harness.reference(config)
     graph = SPACE_MODELS[cfg["model"]].build_graph(**cfg["build_args"])
-    harness.check_shapes(graph, ref.param_shapes(cfg))
+    harness.system(cfg).check_shapes(graph, ref.param_shapes(cfg))
     layers = ref.layers(cfg)
     ops = sum(harness.counts(x["op"]).ops(x, 1) for x in layers)
     macs = sum(harness.counts(x["op"]).mac_ops(x, 1) for x in layers)

@@ -59,6 +59,24 @@ def test_end_to_end_readers():
     assert read("sched_wait_ms", run) == pytest.approx(3.0)
 
 
+def test_cadence_readers_read_the_untraced_requests():
+    """The single-frame cells' per-layer readings: the scheduler's wait and
+    the retirement as the stream cells read them, and the p95 of the
+    requests due before the traced stretch."""
+    w = harness.Window(10.0, 12.0, energy_j=30.0, gave_up_at=15.0)
+    reqs = [_req(0, 10.0, 10.01, 10.001), _req(1, 10.5, 10.52, 10.505),
+            _req(2, 11.0, None), _req(3, 11.9, 12.4, 11.95)]
+    run = _run(reqs, w)
+    for name in ("sched_wait_ms", "retire_ms"):
+        assert read(name + ".cadence", run) == read(name, run)
+    assert read("latency_p95_ms.cadence", run) == read("latency_p95_ms", run)
+    run.trace_from = 10.9
+    assert read("latency_p95_ms.cadence", run) == pytest.approx(
+        np.percentile([0.01, 0.02], 95) * 1e3)
+    assert read("sched_wait_ms.cadence", run) == pytest.approx(3.0)
+    assert read("latency_p95_ms.cadence", _run([], w)) is None
+
+
 def _trace():
     conv = "void conv2d_int8_kernel<3, true>(ConvArgs)"
     dev = [DeviceEvent("Memcpy HtoD (Pinned -> Device)", "h2d", 0, 100_000),
@@ -160,6 +178,26 @@ def test_fixed_set_arrivals_are_deterministic_in_the_seed():
     assert np.mean(np.diff(f1)) == pytest.approx(1 / 500.0, rel=0.01)
 
 
+@pytest.mark.parametrize("rate", [80.0, 1000.0])
+def test_window_arrivals_fix_the_windows_count(rate):
+    """The window's gaps are one set for every seed, and the grace
+    period's arrivals come after them: the count due in the window moves
+    only by the few grace arrivals that land before its close, where one
+    shuffle of all the gaps moved it by about 1% at 100/s."""
+    seconds, grace = 20.0, 3.0
+    n_win = int(round(rate * seconds))
+    runs = [loads.window_arrivals(rate, seconds, grace, 2 ** 31 + s)
+            for s in range(40)]
+    counts = {int(np.sum(o < seconds)) for o in runs}
+    assert min(counts) >= n_win + 1 and max(counts) - min(counts) <= 3
+    for o in runs:
+        assert o[0] == 0.0 and np.all(np.diff(o) > 0)
+        assert o[-1] >= seconds + grace
+    assert np.allclose(np.sort(np.diff(runs[0][:n_win + 1])),
+                       np.sort(np.diff(runs[1][:n_win + 1])))
+    assert not np.array_equal(runs[0], runs[1])
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in MANIFEST["workloads"]])
 def test_every_seed_offers_a_cell_the_same_work(cell):
     """The arrivals a run schedules for its window, on two large seeds:
@@ -167,8 +205,7 @@ def test_every_seed_offers_a_cell_the_same_work(cell):
     m = harness.Manifest()
     traffic = m.traffic(m.workload(cell)["traffic"])
     rate, seconds = float(traffic["rate_hz"]), float(MANIFEST["run_seconds"])
-    n = int(math.ceil(rate * (seconds + 3.0))) + 1
-    due = [int(np.sum(loads.fixed_set_poisson(rate, n, s) < seconds))
+    due = [int(np.sum(loads.window_arrivals(rate, seconds, 3.0, s) < seconds))
            for s in (2 ** 31 + 5, 2 ** 32 + 9)]
     assert due[0] == pytest.approx(due[1], rel=0.005)
     assert due[0] == pytest.approx(rate * seconds, rel=0.01)
@@ -180,10 +217,11 @@ def test_frame_pool_and_weights_are_deterministic_in_the_seed(config):
     cfg = m.config(config)
     cfg.update(pool_frames=3, calibration_frames=2)
     ref = harness.reference(config)
+    make_inputs = harness.system(cfg).make_inputs
     seed = 2 ** 33 + 5
-    a = harness.make_inputs(cfg, ref, seed, "cpu")
-    b = harness.make_inputs(cfg, ref, seed, "cpu")
-    c = harness.make_inputs(cfg, ref, seed + 1, "cpu")
+    a = make_inputs(cfg, ref, seed, "cpu")
+    b = make_inputs(cfg, ref, seed, "cpu")
+    c = make_inputs(cfg, ref, seed + 1, "cpu")
     for k in a.pool:
         assert torch.equal(a.pool[k], b.pool[k])
         assert a.pool[k].shape[0] == 3

@@ -84,8 +84,9 @@ def test_closed_loop_mix_runs_from_data_alone(one_thread, tmp_path):
     """The closed loop (``traffic/backlog64.json``, no cell yet): a cell
     added as a manifest entry over it runs correct, answers are attempted
     inside the window, and its ragged tail is checked with the rest."""
-    shutil.copytree(ROOT / "bench" / "configs", tmp_path / "bench" / "configs")
-    shutil.copytree(ROOT / "bench" / "traffic", tmp_path / "bench" / "traffic")
+    for sub in ("configs", "traffic", "reference", "systems"):
+        shutil.copytree(ROOT / "bench" / sub, tmp_path / "bench" / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     data = json.loads((ROOT / "BENCHMARK.json").read_text())
     data["workloads"].append({"name": "vae.backlog", "config": "vae_encoder",
                               "traffic": "backlog64", "chips": 1,
@@ -107,7 +108,8 @@ def test_traced_run_reports_its_window(one_thread):
     assert r["correct"], r["check"]
     assert r["device"]["window_s"] > 0
     assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
-    assert {"sched_wait_ms", "retire_ms"} <= set(r["metrics"])
+    assert set(r["metrics"]) == {"sched_wait_ms.cadence", "retire_ms.cadence",
+                                 "latency_p95_ms.cadence"}
 
 
 def _break_output(monkeypatch, how):
