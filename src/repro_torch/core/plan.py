@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.core import autotune as autotune_mod
 from repro_torch.core import energy as energy_mod
 from repro_torch.core import memory as memory_mod
+from repro_torch.core import spans
 from repro_torch.core.opgraph import (RANDOM_OPS, Graph, Node, base_op,
                                      consumers, param_node)
 from repro_torch.core.passes import PassContext, PassManager, PassReport
@@ -207,6 +208,12 @@ class Segment:
     offload unit)."""
     backend: str                    # 'accel' | 'flex'
     nodes: Tuple[str, ...]
+
+    @property
+    def span(self) -> str:
+        """Its span on a traced dispatch (``core/spans.py``):
+        ``plan.accel`` or ``plan.flex``."""
+        return "plan." + self.backend
 
 
 @dataclasses.dataclass
@@ -537,34 +544,35 @@ class ExecutionPlan:
                                         device=device)
                     vals[name] = v.expand((batch,) + tuple(v.shape))
             for seg in self.segments:
-                for name in seg.nodes:
-                    node = graph.nodes[name]
-                    if name in fused_into:      # ReLU folded into producer
-                        vals[name] = vals[fused_into[name]]
-                        continue
-                    xs = [vals[i] for i in node.inputs]
-                    dec = tuning.get(name) if tuning else None
-                    cfg = dec.config if dec else None
-                    if name in qplans:
-                        vals[name] = _run_quantized(
-                            qplans[name], xs[0], config=cfg,
-                            packed=packed.get(name), w_q=weights[name])
-                        continue
-                    if node.op == "fused":      # fp32 fused (flex path)
-                        vals[name] = _run_fused_f32(node, xs, params)
-                        continue
-                    if node.op == "attention":
-                        vals[name] = _attention_b(xs, node.attrs, cfg)
-                        continue
-                    if node.op == "ssd":
-                        vals[name], states[ssd_state_key(name)] = _ssd_b(
-                            xs, params.get(name, {}), node.attrs, cfg)
-                        continue
-                    sub = None
-                    if node.op in RANDOM_OPS:
-                        rngs, sub = split_keys(rngs)
-                    vals[name] = BATCHED_OP_IMPLS[node.op](
-                        xs, params.get(name, {}), node.attrs, sub)
+                with (spans.span(seg.span) if spans.on else spans.OFF):
+                    for name in seg.nodes:
+                        node = graph.nodes[name]
+                        if name in fused_into:      # ReLU folded into producer
+                            vals[name] = vals[fused_into[name]]
+                            continue
+                        xs = [vals[i] for i in node.inputs]
+                        dec = tuning.get(name) if tuning else None
+                        cfg = dec.config if dec else None
+                        if name in qplans:
+                            vals[name] = _run_quantized(
+                                qplans[name], xs[0], config=cfg,
+                                packed=packed.get(name), w_q=weights[name])
+                            continue
+                        if node.op == "fused":      # fp32 fused (flex path)
+                            vals[name] = _run_fused_f32(node, xs, params)
+                            continue
+                        if node.op == "attention":
+                            vals[name] = _attention_b(xs, node.attrs, cfg)
+                            continue
+                        if node.op == "ssd":
+                            vals[name], states[ssd_state_key(name)] = _ssd_b(
+                                xs, params.get(name, {}), node.attrs, cfg)
+                            continue
+                        sub = None
+                        if node.op in RANDOM_OPS:
+                            rngs, sub = split_keys(rngs)
+                        vals[name] = BATCHED_OP_IMPLS[node.op](
+                            xs, params.get(name, {}), node.attrs, sub)
             if mark is not None:
                 mark()
             return {**{o: vals[o] for o in graph.outputs}, **states}

@@ -4,7 +4,8 @@ timeline, and one record per dispatch.
 Off by default. :func:`enable` turns it on for the device the served
 engines run on and :func:`disable` turns it off; :func:`records` returns
 the records made since the last :func:`reset`. While it is off, each call
-site costs one check of the module global :data:`on`: no
+site costs one check of the module global :data:`on` (a segment of the
+plan then enters the shared empty context :data:`OFF`): no
 ``record_function``, no CUDA event, no clock read.
 
 **Spans.** While tracing is on and a ``torch.profiler`` records on the
@@ -21,6 +22,11 @@ with the device's events:
                       the service estimate, the record, the completions
 ``pipeline.stage``    ``ServingPipeline._stage``: host staging, the copy in
 ``plan.dispatch``     ``ServingPipeline._dispatch``: the plan's launches
+``plan.accel``        one accel segment of the plan (``ExecutionPlan.
+                      segments``): the int8 kernels and the ops beside them
+``plan.flex``         one flex segment: library fp32 operations the int8
+                      kernels do not run (3-D convolutions and pools, their
+                      pads and permutes)
 ``pipeline.wait``     the host blocked until the dispatch's device work ended
 ``pipeline.unstage``  ``ServingPipeline._unstage``: the copy out
 ``pipeline.keep``     ``ServingPipeline._keep``: the keep predicate
@@ -58,7 +64,7 @@ _offset_ns = 0
 _pool: List[torch.cuda.Event] = []      # events of retired dispatches
 # (record, the clock of its ``done`` or None, device ns since its anchor)
 _records: List[Tuple["DispatchSpan", Optional["_Clock"], float]] = []
-_NULL = contextlib.nullcontext()
+OFF = contextlib.nullcontext()          # the span of a call site while off
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,7 +275,7 @@ def span(name: str):
     this thread, else a context that does nothing."""
     if on and torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
-    return _NULL
+    return OFF
 
 
 def traced(name: str) -> Callable:

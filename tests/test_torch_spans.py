@@ -102,7 +102,7 @@ def test_tracing_off_records_nothing_and_changes_nothing(engine,
         np.testing.assert_array_equal(c.outputs["head"],
                                       by_rid[c.rid].outputs["head"])
     assert set(names) == {"sched.step", "sched.pick", "sched.complete",
-                          "pipeline.stage", "plan.dispatch",
+                          "pipeline.stage", "plan.dispatch", "plan.accel",
                           "pipeline.unstage", "pipeline.keep"}
     assert len(spans.records()) == len(on.dispatches) > 2
 
@@ -155,6 +155,40 @@ def test_standalone_run_records_each_batch(engine):
                                                           None)
         assert r.started == r.stage0 <= r.stage1 <= r.launched <= r.done
         assert r.done <= r.retire0 <= r.retired
+
+
+def test_plan_segments_carry_their_spans():
+    """The MMS BaselineNet on ``accel`` (3-D convs and pools on flex
+    segments between accel ones), one B=4 dispatch profiled on the CPU:
+    with tracing on, one ``plan.flex`` or ``plan.accel`` span a segment,
+    in the plan's segment order; off, none; the outputs bit-identical
+    either way."""
+    from repro_torch.models import mms
+    e = Engine(mms.build_baseline_graph(), mms.init_params("baseline_net", 0),
+               device="cpu")
+    rng = np.random.default_rng(2)
+    e.calibrate([mms.synthetic_input(rng) for _ in range(2)])
+    batch = mms.synthetic_batch(rng, 4)
+    e.run_batch(batch, "accel")             # lowered before profiling
+
+    def profiled():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = e.run_batch(batch, "accel")
+        seen = sorted((ev.time_range.start, ev.name) for ev in prof.events()
+                      if ev.name in ("plan.flex", "plan.accel"))
+        return out, [name for _, name in seen]
+
+    off, off_names = profiled()
+    spans.enable("cpu")
+    on, on_names = profiled()
+    spans.disable()
+    segments = e.planned("accel").segments
+    assert {s.backend for s in segments} == {"flex", "accel"}
+    assert off_names == []
+    assert on_names == [s.span for s in segments]
+    for k in off:
+        assert torch.equal(torch.as_tensor(on[k]), torch.as_tensor(off[k]))
 
 
 def test_card_clock_maps_between_anchors():
